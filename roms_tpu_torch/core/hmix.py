@@ -1,0 +1,171 @@
+"""Horizontal mixing along s-surfaces (port of the four s-surface
+routines of roms_tpu/core/hmix.py: t3dmix2_s.h, t3dmix4_s.h,
+uv3dmix2_s.h, uv3dmix4_s.h).
+
+The harmonic forms are forward-Euler corrections of the Hz-weighted
+corrector seeds; uv3dmix also feeds the vertically integrated stress
+divergence into rufrc/rvfrc.  The fused uvmix kernel needs an
+EW-periodic channel and comes with the UPWELLING slice; the rotated
+(geo/iso) and Smagorinsky forms come later.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import CLOSED, ModelConfig
+from ..grid.grid import Grid
+from ..ops import stencil as st
+
+
+def t3dmix2_s(cfg: ModelConfig, grid: Grid, t, t_part, Hz):
+    """Add dt * harmonic diffusion of t to t_part (Hz*t units)."""
+    if all(d == 0.0 for d in cfg.mixing.tnu2):
+        return t_part
+    dt = cfg.dt
+    pmn = grid.pm * grid.pn
+    out = []
+    for itrc in range(cfg.NT):
+        diff2 = grid.diff2[itrc]
+        cffx = 0.25 * (diff2 + st.im1(diff2)) * grid.pmon_u
+        cffe = 0.25 * (diff2 + st.jm1(diff2)) * grid.pnom_v
+        FX = cffx * (Hz + st.im1(Hz)) * (t[itrc] - st.im1(t[itrc])) \
+            * grid.umask
+        FE = cffe * (Hz + st.jm1(Hz)) * (t[itrc] - st.jm1(t[itrc])) \
+            * grid.vmask
+        if cfg.bc.ew_periodic:
+            FX = st.periodic_x(FX)
+        if cfg.bc.ns_periodic:
+            FE = st.periodic_y(FE)
+        out.append(t_part[itrc] + dt * pmn * (st.dx_p(FX) + st.dy_p(FE)))
+    return torch.stack(out)
+
+
+def _lap_bc(cfg: ModelConfig, lbc, Lap):
+    """Boundary treatment of the intermediate biharmonic Laplacian
+    (t3dmix4_s.h:233-290): closed edges zero it, others copy."""
+    if cfg.bc.ew_periodic:
+        Lap = st.periodic_x(Lap)
+    else:
+        wv = 0.0 if lbc.west == CLOSED else Lap[..., :, 1]
+        ev = 0.0 if lbc.east == CLOSED else Lap[..., :, -2]
+        Lap = st.set_col(st.set_col(Lap, 0, wv), -1, ev)
+    if cfg.bc.ns_periodic:
+        Lap = st.periodic_y(Lap)
+    else:
+        Lap = st.zero_south(Lap) if lbc.south == CLOSED \
+            else st.clamp_south(Lap, row=1)
+        Lap = st.zero_north(Lap) if lbc.north == CLOSED \
+            else st.clamp_north(Lap, row=-2)
+    return Lap
+
+
+def t3dmix4_s(cfg: ModelConfig, grid: Grid, t, t_part, Hz):
+    """Biharmonic tracer mixing along s (t3dmix4_s.h)."""
+    if all(d == 0.0 for d in cfg.mixing.tnu4):
+        return t_part
+    dt = cfg.dt
+    pmn = grid.pm * grid.pn
+    out = []
+    for itrc in range(cfg.NT):
+        d4 = grid.diff4[itrc]
+        cffx = 0.25 * (d4 + st.im1(d4)) * grid.pmon_u * grid.umask
+        cffe = 0.25 * (d4 + st.jm1(d4)) * grid.pnom_v * grid.vmask
+
+        def harm(q):
+            FX = cffx * (Hz + st.im1(Hz)) * (q - st.im1(q))
+            FE = cffe * (Hz + st.jm1(Hz)) * (q - st.jm1(q))
+            if cfg.bc.ew_periodic:
+                FX = st.periodic_x(FX)
+            if cfg.bc.ns_periodic:
+                FE = st.periodic_y(FE)
+            return st.dx_p(FX) + st.dy_p(FE)
+
+        Lap = _lap_bc(cfg, cfg.bc.t, pmn * harm(t[itrc]) / Hz)
+        out.append(t_part[itrc] - dt * pmn * harm(Lap))
+    return torch.stack(out)
+
+
+def _ring(cfg, *fs):
+    if cfg.bc.ew_periodic:
+        fs = tuple(st.periodic_x(f) for f in fs)
+    if cfg.bc.ns_periodic:
+        fs = tuple(st.periodic_y(f) for f in fs)
+    return fs
+
+
+def uv3dmix2_s(cfg: ModelConfig, grid: Grid, u, v, u_part, v_part, Hz,
+               rufrc, rvfrc):
+    """Harmonic viscosity along s (uv3dmix2_s.h:120-222); returns
+    (u_part, v_part, rufrc, rvfrc)."""
+    if cfg.mixing.visc2 <= 0.0:
+        return u_part, v_part, rufrc, rvfrc
+    dt = cfg.dt
+    pn, pm = grid.pn, grid.pm
+    upn = pn + st.im1(pn)
+    upm = pm + st.im1(pm)
+    vpn = pn + st.jm1(pn)
+    vpm = pm + st.jm1(pm)
+    vr, vp = grid.visc2_r, grid.visc2_p
+    cff_r = Hz * 0.5 * (grid.pmon_r * st.dx_p(upn * u)
+                        - grid.pnom_r * st.dy_p(vpm * v))
+    UFx = grid.on_r * grid.on_r * vr * cff_r
+    VFe = grid.om_r * grid.om_r * vr * cff_r
+    Hz_p = 0.25 * (Hz + st.im1(Hz) + st.jm1(Hz) + st.im1jm1(Hz))
+    cff_p = 0.5 * Hz_p * (grid.pmon_p * st.dx_m(vpn * v)
+                          + grid.pnom_p * st.dy_m(upm * u)) * grid.pmask
+    UFe = grid.om_p * grid.om_p * vp * cff_p
+    VFx = grid.on_p * grid.on_p * vp * cff_p
+    UFx, VFe, UFe, VFx = _ring(cfg, UFx, VFe, UFe, VFx)
+    div_u = 0.5 * upn * st.dx_m(UFx) + 0.5 * upm * (st.jp1(UFe) - UFe)
+    div_v = 0.5 * vpn * (st.ip1(VFx) - VFx) - 0.5 * vpm * st.dy_m(VFe)
+    u_part = u_part + dt * 0.25 * upm * upn * div_u
+    v_part = v_part + dt * 0.25 * vpm * vpn * div_v
+    rufrc = rufrc + torch.sum(div_u, dim=0)
+    rvfrc = rvfrc + torch.sum(div_v, dim=0)
+    return u_part, v_part, rufrc, rvfrc
+
+
+def uv3dmix4_s(cfg: ModelConfig, grid: Grid, u, v, u_part, v_part, Hz,
+               rufrc, rvfrc):
+    """Biharmonic viscosity along s (uv3dmix4_s.h): the harmonic stress
+    divergence twice, thickness-weighted on the second pass only."""
+    if cfg.mixing.visc4 <= 0.0:
+        return u_part, v_part, rufrc, rvfrc
+    dt = cfg.dt
+    pn, pm = grid.pn, grid.pm
+    upn = pn + st.im1(pn)
+    upm = pm + st.im1(pm)
+    vpn = pn + st.jm1(pn)
+    vpm = pm + st.jm1(pm)
+    Hz_p = 0.25 * (Hz + st.im1(Hz) + st.jm1(Hz) + st.im1jm1(Hz))
+
+    def stress_div(uu, vv, with_hz):
+        wr = Hz if with_hz else 1.0
+        wp = Hz_p if with_hz else 1.0
+        cff_r = wr * 0.5 * (grid.pmon_r * st.dx_p(upn * uu)
+                            - grid.pnom_r * st.dy_p(vpm * vv)) \
+            * grid.visc4_r
+        cff_p = 0.5 * wp * (grid.pmon_p * st.dx_m(vpn * vv)
+                            + grid.pnom_p * st.dy_m(upm * uu)) \
+            * grid.visc4_p * grid.pmask
+        UFx = grid.on_r * grid.on_r * cff_r
+        VFe = grid.om_r * grid.om_r * cff_r
+        UFe = grid.om_p * grid.om_p * cff_p
+        VFx = grid.on_p * grid.on_p * cff_p
+        UFx, VFe, UFe, VFx = _ring(cfg, UFx, VFe, UFe, VFx)
+        du = 0.5 * upn * st.dx_m(UFx) + 0.5 * upm * (st.jp1(UFe) - UFe)
+        dv = 0.5 * vpn * (st.ip1(VFx) - VFx) - 0.5 * vpm * st.dy_m(VFe)
+        return du, dv
+
+    LapU, LapV = stress_div(u, v, with_hz=False)
+    pmn_u = 0.25 * upm * upn
+    pmn_v = 0.25 * vpm * vpn
+    LapU = _lap_bc(cfg, cfg.bc.u, LapU * pmn_u)
+    LapV = _lap_bc(cfg, cfg.bc.v, LapV * pmn_v)
+    du, dv = stress_div(LapU, LapV, with_hz=True)
+    u_part = u_part - dt * pmn_u * du
+    v_part = v_part - dt * pmn_v * dv
+    rufrc = rufrc - torch.sum(du, dim=0)
+    rvfrc = rvfrc - torch.sum(dv, dim=0)
+    return u_part, v_part, rufrc, rvfrc

@@ -1,0 +1,184 @@
+"""Baroclinic time-step orchestrator (port of roms_tpu/core/stepping.py;
+main3d.F:216-1130).
+
+One `step` = prep (mass fluxes, EOS, forcing, bottom drag, vertical
+mixing, omega), the predictor stage (pre_step3d, pressure gradient,
+RHS, horizontal mixing), the fast barotropic loop, new depths, then the
+3D correctors.  This slice carries the branches of the closed-basin
+DOUBLE_GYRE class; every other hook raises NotImplementedError naming
+the slice that brings it.
+
+Kernels: `Model(..., use_kernels=True)` (the default) sends the seven
+kernel entry points through their wrappers, which launch the CUDA
+kernels on CUDA tensors and take the plain PyTorch versions on CPU
+tensors.  `use_kernels=False` is the only way to run the plain
+versions on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..config import ModelConfig
+from ..grid.depth import set_depth, set_massflux
+from ..grid.grid import Grid
+from ..ops import stencil as st
+from . import hmix, omega as omega_mod, prsgrd, rhs3d, set_vbc
+from .pre_step3d import pre_step3d
+from .rho_eos import rho_eos
+from .state import State
+from .step2d import make_fast_loop
+from .step3d_t import step3d_t
+from .step3d_uv import step3d_uv
+from .weights import power_law_weights
+
+_LATER = {
+    "obc_fn": "open boundaries (UPWELLING slice or later)",
+    "clm_fn": "climatology nudging (later slice)",
+    "bio_fn": "biology (later slice)",
+    "sources": "point sources (later slice)",
+    "sed_fn": "sediment (later slice)",
+    "bbl_fn": "bottom boundary layer (later slice)",
+    "eq_tide_fn": "equilibrium tide (later slice)",
+    "ice_fn": "sea ice (later slice)",
+    "wec_fn": "wave-current coupling (later slice)",
+    "pair_fn": "air pressure (later slice)",
+    "flux_corr_fn": "surface flux corrections (later slice)",
+}
+
+
+def default_vmix(cfg: ModelConfig):
+    """Constant background vertical mixing (mod_mixing defaults)."""
+    def vmix(state, grid, z_w):
+        Akv = torch.full_like(z_w, cfg.mixing.akv_bak)
+        Akt = torch.stack([torch.full_like(z_w, ab)
+                           for ab in cfg.mixing.akt_bak])
+        return Akv, Akt
+    return vmix
+
+
+def _check_config(cfg: ModelConfig):
+    if cfg.mixing.vmix in ("lmd", "gls", "my25"):
+        raise NotImplementedError(
+            f"vertical closure '{cfg.mixing.vmix}': LMD-KPP with the "
+            "BENCHMARK slice (slice 3), GLS/MY2.5 with the last slice")
+    if cfg.prsgrd != "djs":
+        raise NotImplementedError(
+            f"pressure gradient '{cfg.prsgrd}': later slice")
+    if cfg.step2d != "lf_am3":
+        raise NotImplementedError("FB barotropic engine: later slice")
+    m = cfg.mixing
+    if m.smagorinsky or m.mix_iso_ts or m.mix_geo_ts or m.mix_geo_uv:
+        raise NotImplementedError(
+            "rotated / Smagorinsky mixing: BENCHMARK slice (slice 3)")
+    if cfg.omega_implicit or cfg.wetdry or cfg.bc.ns_periodic:
+        raise NotImplementedError(
+            "OMEGA_IMPLICIT / WET_DRY / NS-periodic grids: later slice")
+
+
+class Model:
+    """Static configuration plus the step function.
+
+    forcing_fn(time) -> Forcing; vmix_fn(state, grid, z_w) -> (Akv, Akt).
+    The device is the grid's.
+    """
+
+    def __init__(self, cfg: ModelConfig, grid: Grid,
+                 forcing_fn: Callable, vmix_fn: Optional[Callable] = None,
+                 var_rho: bool = True, use_kernels: bool = True, **hooks):
+        for name, val in hooks.items():
+            if name not in _LATER:
+                raise TypeError(f"unexpected argument '{name}'")
+            if val is not None:
+                raise NotImplementedError(f"{name}: {_LATER[name]}")
+        _check_config(cfg)
+        self.cfg = cfg
+        self.grid = grid
+        self.forcing_fn = forcing_fn
+        self.vmix_fn = vmix_fn or default_vmix(cfg)
+        self.use_kernels = bool(use_kernels)
+        self.nfast, w1, w2 = power_law_weights(cfg.ndtfast)
+        self.fast_loop = make_fast_loop(cfg, self.nfast, w1, w2,
+                                        var_rho=var_rho)
+
+    def step(self, state: State) -> State:
+        """One baroclinic step (main3d.F:216-1130)."""
+        cfg, grid = self.cfg, self.grid
+        kern = self.use_kernels
+        z_r, z_w, Hz = state.z_r, state.z_w, state.Hz
+        iic = state.iic
+
+        # ---- prep: fluxes, EOS, forcing, closures (main3d.F:348-535) ----
+        Huon, Hvom = set_massflux(grid, state.u, state.v, Hz)
+        if cfg.bc.ew_periodic:
+            Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
+        rho, _pden, rhoA, rhoS, _bvf = rho_eos(cfg, state.t, z_r, Hz, z_w,
+                                               use_kernels=kern)
+        forcing = self.forcing_fn(state.time)
+        bustr, bvstr = set_vbc.bottom_drag(cfg, grid, state.u, state.v,
+                                           Hz, z_r, z_w)
+        Akv, Akt = self.vmix_fn(state, grid, z_w)
+        W = omega_mod.omega(cfg, grid, Huon, Hvom, z_w)
+
+        # ---- predictor stage (rhs3d.F:80-189) ---------------------------
+        t_half, t_part, u_part, v_part = pre_step3d(
+            cfg, grid, state.u, state.v, state.t, state.t_prev,
+            state.ru_prev, state.rv_prev, state.ru_prev2, state.rv_prev2,
+            Hz, z_r, z_w, Huon, Hvom, W, forcing, bustr, bvstr, iic,
+            use_kernels=kern)
+        ru, rv = prsgrd.prsgrd32(cfg, grid, rho, z_r, z_w, Hz)
+        t_part = hmix.t3dmix2_s(cfg, grid, state.t, t_part, Hz)
+        t_part = hmix.t3dmix4_s(cfg, grid, state.t, t_part, Hz)
+        ru, rv = rhs3d.rhs3d_momentum(cfg, grid, state.u, state.v, Hz,
+                                      Huon, Hvom, W, ru, rv,
+                                      use_kernels=kern)
+        rufrc, rvfrc = rhs3d.integrate_rufrc(cfg, grid, ru, rv, forcing,
+                                             bustr, bvstr)
+        u_part, v_part, rufrc, rvfrc = hmix.uv3dmix2_s(
+            cfg, grid, state.u, state.v, u_part, v_part, Hz, rufrc, rvfrc)
+        u_part, v_part, rufrc, rvfrc = hmix.uv3dmix4_s(
+            cfg, grid, state.u, state.v, u_part, v_part, Hz, rufrc, rvfrc)
+
+        # ---- fast barotropic sub-cycle (main3d.F:810-918) ---------------
+        avg, rufrc_eff, rvfrc_eff, _, _, _ = self.fast_loop(
+            grid, state.zeta, state.ubar, state.vbar, rufrc, rvfrc,
+            rhoS, rhoA, state.ru0_prev, state.rv0_prev,
+            state.ru0_prev2, state.rv0_prev2, iic)
+
+        # ---- new depths from the filtered free surface (main3d.F:963) ---
+        z_r2, z_w2, Hz2 = set_depth(grid, avg.Zt_avg1)
+
+        # ---- correctors (main3d.F:990-1045) -----------------------------
+        un, vn, ubar, vbar, Huon2, Hvom2 = step3d_uv(
+            cfg, grid, u_part, v_part, ru, rv, Hz2, Akv, avg, Huon, Hvom,
+            iic, use_kernels=kern)
+        W2 = omega_mod.omega(cfg, grid, Huon2, Hvom2, z_w2)
+        tn = step3d_t(cfg, grid, t_half, t_part, Huon2, Hvom2, W2, Hz2,
+                      Akt, use_kernels=kern)
+
+        return State(
+            time=state.time + cfg.dt, iic=iic + 1,
+            zeta=avg.Zt_avg1, ubar=ubar, vbar=vbar,
+            u=un, v=vn, t=tn, t_prev=state.t,
+            ru_prev=ru, rv_prev=rv,
+            ru_prev2=state.ru_prev, rv_prev2=state.rv_prev,
+            ru0_prev=rufrc_eff, rv0_prev=rvfrc_eff,
+            ru0_prev2=state.ru0_prev, rv0_prev2=state.rv0_prev,
+            z_r=z_r2, z_w=z_w2, Hz=Hz2)
+
+    def step_diag(self, state: State):
+        """DIAGNOSTICS_TS budgets (step_impl collect_diag)."""
+        raise NotImplementedError("collect_diag tracer budgets: later slice")
+
+    def step_diag_uv(self, state: State):
+        """DIAGNOSTICS_UV budgets (step_impl collect_diag_uv)."""
+        raise NotImplementedError(
+            "collect_diag_uv momentum budgets: later slice")
+
+    def run(self, state: State, nsteps: int) -> State:
+        """Advance nsteps baroclinic steps."""
+        for _ in range(nsteps):
+            state = self.step(state)
+        return state

@@ -1,0 +1,102 @@
+"""Kernel 2: fused UP3 + C4 tracer advection of all tracers
+(csrc/tadv.cu), predictor and corrector modes.
+
+Replaces roms_tpu/ops/pallas_tadv.py `predictor_pallas` and
+`corrector_pallas`.  Output rows j = 0 and Mj-1 are zero in both the
+kernel and its plain version (the reference's jnp path leaves roll-wrap
+values there; bc_rho overwrites them either way).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import CENTERED4, UPSTREAM3
+from . import _lib, stencil as st
+
+
+def _zero_ring_rows(x):
+    x = x.clone()
+    x[..., 0, :] = 0.0
+    x[..., -1, :] = 0.0
+    return x
+
+
+def _fluxes(cfg, grid, q, Huon, Hvom, Hz, W):
+    from ..core.advection import hadv_flux, vadv_flux
+    FX, FE = hadv_flux(cfg, grid, q, Huon, Hvom, UPSTREAM3)
+    FC = vadv_flux(cfg, q, W, Hz, CENTERED4)
+    return st.dx_p(FX) + st.dy_p(FE), FC[1:] - FC[:-1]
+
+
+def predictor_plain(cfg, grid, t, t_prev, Huon, Hvom, W, Hz,
+                    cff, cff1, cff2):
+    """t_half for all tracers (pre_step3d.F:260-700), before bc_rho."""
+    pmn = grid.pm * grid.pn
+    out = []
+    for itrc in range(cfg.NT):
+        hdiv, vdiv = _fluxes(cfg, grid, t[itrc], Huon, Hvom, Hz, W)
+        th = Hz * (cff1 * t[itrc] + cff2 * t_prev[itrc]) - \
+            cff * pmn * hdiv
+        DC = 1.0 / (Hz - cff * pmn * (st.dx_p(Huon) + st.dy_p(Hvom)
+                                      + (W[1:] - W[:-1])))
+        out.append(DC * (th - cff * pmn * vdiv))
+    return _zero_ring_rows(torch.stack(out))
+
+
+def corrector_plain(cfg, grid, t_half, t_part, Huon, Hvom, W, Hz):
+    """Pre-diffusion Hz-weighted tn for all tracers (step3d_t.F:
+    343-1205): t_part - dt*pmn*(hdiv + vdiv), added in that order."""
+    pmn = grid.pm * grid.pn
+    out = []
+    for itrc in range(cfg.NT):
+        hdiv, vdiv = _fluxes(cfg, grid, t_half[itrc], Huon, Hvom, Hz, W)
+        tn = t_part[itrc] + -cfg.dt * pmn * hdiv
+        out.append(tn + -cfg.dt * pmn * vdiv)
+    return _zero_ring_rows(torch.stack(out))
+
+
+def predictor(cfg, grid, t, t_prev, Huon, Hvom, W, Hz, cff, cff1, cff2):
+    """Wrapper: plain version on CPU tensors, kernel on CUDA tensors."""
+    if t.device.type == "cpu":
+        return predictor_plain(cfg, grid, t, t_prev, Huon, Hvom, W, Hz,
+                               cff, cff1, cff2)
+    return _launch("tadv_predictor", cfg, grid, t, t_prev, Huon, Hvom, W,
+                   Hz, (cff, cff1, cff2))
+
+
+def corrector(cfg, grid, t_half, t_part, Huon, Hvom, W, Hz):
+    """Wrapper: plain version on CPU tensors, kernel on CUDA tensors."""
+    if t_half.device.type == "cpu":
+        return corrector_plain(cfg, grid, t_half, t_part, Huon, Hvom, W,
+                               Hz)
+    return _launch("tadv_corrector", cfg, grid, t_half, t_part, Huon,
+                   Hvom, W, Hz, (cfg.dt, 0.0, 0.0))
+
+
+def _launch(name, cfg, grid, q, aux, Huon, Hvom, W, Hz, scalars):
+    _lib.require_closed_walls(cfg, name)
+    for itrc in range(cfg.NT):
+        if cfg.tracer_hadv(itrc) != UPSTREAM3 or \
+                cfg.tracer_vadv(itrc) != CENTERED4:
+            raise NotImplementedError(
+                f"{name} kernel covers UP3/C4 tracers only")
+    pmn = grid.pm * grid.pn
+    (q, aux, Huon, Hvom, W, Hz, pmn, umask, vmask), sfx, stream = \
+        _lib.prepare(name, [q, aux, Huon, Hvom, W, Hz, pmn, grid.umask,
+                            grid.vmask])
+    NT, N, Mj, Li = q.shape
+    if aux.shape != q.shape or Huon.shape != (N, Mj, Li) or \
+            W.shape != (N + 1, Mj, Li) or N < 3:
+        raise ValueError(f"{name}: inconsistent shapes")
+    out = torch.empty_like(q)
+    P, I, D = _lib.P, _lib.I, _lib.D
+    fn = _lib.func(f"roms_tadv_{sfx}", [I] + [P] * 10 + [I] * 4 + [D] * 3
+                   + [P])
+    rc = fn(int(name == "tadv_predictor"),
+            *[_lib.ptr(x) for x in (q, aux, Huon, Hvom, Hz, W, pmn, umask,
+                                    vmask, out)],
+            NT, N, Mj, Li, *[float(s) for s in scalars], P(stream))
+    _lib.launches[name] += 1
+    _lib.check(rc, name)
+    return out

@@ -1,0 +1,54 @@
+"""The CUDA kernels of roms_tpu_torch against their plain PyTorch
+versions on the card, float64 at the tolerance of chip_smoke.py, plus
+the wrappers' device discipline.
+
+Needs an NVIDIA card and nvcc; without one the kernel cases skip.  This
+file imports no JAX, so on a machine with the card but without JAX it
+runs as
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+"""
+
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
+from roms_tpu_torch.ops import _lib, tadv  # noqa: E402
+
+ENTRY_POINTS = ["rho_eos", "tadv_predictor", "tadv_corrector",
+                "rhs3d_momentum", "uv_solve", "uv_finish", "spline_vdiff"]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernel: needs an NVIDIA card")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_cuda_kernel_matches_plain(name):
+    _need_card()
+    env = cs.setup(torch, 30, 60, 8, "float64")
+    before = _lib.launches[name]
+    args, _ = cs.entry_inputs(torch, name, *env, 5)
+    rel, _ = cs.compare(torch, name, args, "float64")
+    assert rel <= cs.TOL["float64"], (name, rel)
+    assert _lib.launches[name] == before + 1
+
+
+def test_wrapper_on_cpu_tensors_takes_the_plain_version():
+    """CPU tensors never reach the kernel library (no build, no count)."""
+    cfg = tia.double_gyre_config(Lm=8, Mm=10, N=4)
+    grid = tia.double_gyre_grid(cfg, device="cpu")
+    s = tia.double_gyre_initial(cfg, grid)
+    before = dict(_lib.launches)
+    W = torch.zeros_like(s.z_w)
+    out = tadv.corrector(cfg, grid, s.t, s.Hz * s.t, s.u, s.v, W, s.Hz)
+    assert out.device.type == "cpu"
+    assert _lib.launches == before

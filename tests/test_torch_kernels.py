@@ -1,0 +1,227 @@
+"""The seven kernel entry points of roms_tpu_torch: each plain PyTorch
+version (what the wrapper runs on CPU tensors) against roms_tpu, float64,
+inputs made from a numpy seed on a small DOUBLE_GYRE grid.
+
+roms_tpu runs as its own Pallas tests run it on the CPU: the Pallas
+kernel in interpret mode (env set by monkeypatch) and, where it
+documents them, its jnp counterparts.  Tolerance 1e-12 relative; over
+the interior rows for tadv/rhs3d (their ring rows are dead data that
+the kernels zero), over whole arrays for rho/uv/vdiff.
+
+The CUDA kernels themselves need a card: tests/test_torch_cuda.py.
+Also here: the gate test proving this slice covers every Pallas kernel
+roms_tpu's float32 DOUBLE_GYRE step runs on one TPU.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from roms_tpu.core import rhs3d as jrhs3d
+from roms_tpu.core.omega import omega
+from roms_tpu.functionals import idealized as ia
+from roms_tpu.grid.depth import set_depth, set_massflux
+from roms_tpu.ops import (pallas_rho, pallas_rhs3d, pallas_tadv, pallas_uv,
+                          pallas_vdiff)
+from roms_tpu_torch.ops import rho as trho, rhs3d as trhs3d, tadv as ttadv
+from roms_tpu_torch.ops import uv as tuv, vdiff as tvdiff
+
+from torch_port_util import port, rel_err
+
+TOL = 1e-12
+IICS = (0, 1, 5)
+
+
+def _cffs(cfg, iic):
+    Gamma = 1.0 / 6.0
+    if iic == 0:
+        return 0.5 * cfg.dt, 1.0, 0.0
+    return (1.0 - Gamma) * cfg.dt, 0.5 + Gamma, 0.5 - Gamma
+
+
+def _cffab(cfg, iic):
+    dt = cfg.dt
+    return (0.25 * dt, 0.25 * dt * 1.5, 0.25 * dt * 23.0 / 12.0)[min(iic, 2)]
+
+
+@pytest.fixture(scope="module")
+def case():
+    """DOUBLE_GYRE at Lm=12, Mm=20, N=6 with seeded fields, as numpy
+    arrays plus the config/grid of both packages."""
+    torch.set_num_threads(1)
+    cfg = ia.double_gyre_config(Lm=12, Mm=20, N=6, dtype="float64")
+    grid = ia.double_gyre_grid(cfg)
+    s = ia.double_gyre_initial(cfg, grid)
+    rng = np.random.default_rng(2024)
+    N, (Mj, Li), NT = cfg.N, cfg.shape2d, cfg.NT
+    z_r, z_w, Hz = set_depth(grid, jnp.asarray(
+        0.05 * rng.standard_normal((Mj, Li))))
+    u = jnp.asarray(0.1 * rng.standard_normal((N, Mj, Li))) * grid.umask
+    v = jnp.asarray(0.1 * rng.standard_normal((N, Mj, Li))) * grid.vmask
+    Huon, Hvom = set_massflux(grid, u, v, Hz)
+    W = omega(cfg, grid, Huon, Hvom, z_w)
+    t = s.t + jnp.asarray(0.1 * rng.standard_normal((NT, N, Mj, Li)))
+    arrays = dict(
+        z_r=z_r, z_w=z_w, Hz=Hz, u=u, v=v, Huon=Huon, Hvom=Hvom, W=W, t=t,
+        t_prev=t + jnp.asarray(0.01 * rng.standard_normal(t.shape)),
+        ru=jnp.asarray(rng.standard_normal((N, Mj, Li))),
+        rv=jnp.asarray(rng.standard_normal((N, Mj, Li))),
+        Akv=jnp.asarray(1e-3 * np.abs(rng.standard_normal((N + 1, Mj, Li)))
+                        + 1e-5),
+        Akt=jnp.asarray(1e-3 * np.abs(rng.standard_normal(
+            (cfg.NAT, N + 1, Mj, Li))) + 1e-6),
+        avg=[jnp.asarray(0.01 * rng.standard_normal((Mj, Li)))
+             * jnp.sum(Hz, axis=0) * m
+             for m in (grid.on_u, grid.om_v, grid.on_u, grid.om_v)])
+    tcfg, tgrid = port(cfg, grid)
+    return cfg, grid, tcfg, tgrid, arrays
+
+
+def _t(x):
+    if isinstance(x, list):
+        return [_t(y) for y in x]
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "jm95"])
+def test_rho_eos_plain(case, linear):
+    cfg, grid, tcfg, _, a = case
+    if not linear:
+        eos = cfg.eos.__class__(linear=False)
+        cfg, tcfg = cfg.replace(eos=eos), tcfg.replace(eos=eos.__class__(
+            linear=False))
+    args = (a["t"], a["z_r"], a["Hz"], a["z_w"])
+    ref = pallas_rho.rho_eos_pallas(cfg, *args, interpret=True)
+    got = trho.rho_eos(tcfg, *_t(list(args)))
+    for r, g in zip(ref, got):
+        assert rel_err(r, g) < TOL
+
+
+@pytest.mark.parametrize("iic", IICS)
+def test_tadv_predictor_plain(case, monkeypatch, iic):
+    monkeypatch.setenv("ROMS_TPU_PALLAS_TADV_INTERPRET", "1")
+    cfg, grid, tcfg, tgrid, a = case
+    args = [a[k] for k in ("t", "t_prev", "Huon", "Hvom", "W", "Hz")]
+    sc = _cffs(cfg, iic)
+    ref = pallas_tadv.predictor_pallas(cfg, grid, *args,
+                                       *[jnp.asarray(x) for x in sc])
+    got = ttadv.predictor(tcfg, tgrid, *_t(args), *sc)
+    assert rel_err(ref, got, np.s_[..., 1:-1, :]) < TOL
+    assert not got[..., 0, :].any() and not got[..., -1, :].any()
+
+
+def test_tadv_corrector_plain(case, monkeypatch):
+    monkeypatch.setenv("ROMS_TPU_PALLAS_TADV_INTERPRET", "1")
+    cfg, grid, tcfg, tgrid, a = case
+    t_part = a["Hz"][None] * a["t"]
+    args = [a["t"], t_part] + [a[k] for k in ("Huon", "Hvom", "W", "Hz")]
+    ref = pallas_tadv.corrector_pallas(cfg, grid, *args)
+    got = ttadv.corrector(tcfg, tgrid, *_t(args))
+    assert rel_err(ref, got, np.s_[..., 1:-1, :]) < TOL
+
+
+def test_rhs3d_momentum_plain(case):
+    cfg, grid, tcfg, tgrid, a = case
+    args = [a[k] for k in ("u", "v", "Hz", "Huon", "Hvom", "W", "ru", "rv")]
+    got = trhs3d.rhs3d_momentum(tcfg, tgrid, *_t(args))
+    # every interior row against the jnp path (its ring rows hold
+    # roll-wrap values; the kernel's are zero)
+    ref = jrhs3d.coriolis(cfg, grid, a["u"], a["v"], a["Hz"])
+    ru, rv = a["ru"] + ref[0], a["rv"] + ref[1]
+    hu, hv = jrhs3d.hadv_uv(cfg, grid, a["u"], a["v"], a["Huon"],
+                            a["Hvom"])
+    ru, rv = ru + hu, rv + hv
+    wu, wv = jrhs3d.vadv_uv(cfg, a["u"], a["v"], a["W"])
+    ru, rv = ru + wu, rv + wv
+    for r, g in zip((ru, rv), got):
+        assert rel_err(r, g, np.s_[:, 1:-1, :]) < TOL
+        assert not g[:, 0].any() and not g[:, -1].any()
+    # the Pallas kernel over the interior its own tests compare
+    pal = pallas_rhs3d.rhs3d_momentum_pallas(cfg, grid, *args,
+                                             interpret=True)
+    assert rel_err(pal[0], got[0], np.s_[:, 1:-1, 1:-1]) < TOL
+    assert rel_err(pal[1], got[1], np.s_[:, 2:-1, 1:-1]) < TOL
+
+
+@pytest.mark.parametrize("iic", IICS)
+def test_uv_solve_plain(case, iic):
+    cfg, grid, tcfg, tgrid, a = case
+    Hz = a["Hz"]
+    args = [a["u"] * Hz, a["v"] * Hz, 1e-2 * a["ru"], 1e-2 * a["rv"], Hz,
+            a["Akv"]]
+    ref = pallas_uv.uv_solve_pallas(cfg, grid, *args, _cffab(cfg, iic),
+                                    a["avg"][0], a["avg"][1],
+                                    interpret=True)
+    got = tuv.uv_solve(tcfg, tgrid, *_t(args), _cffab(cfg, iic),
+                       *_t(a["avg"][:2]))
+    for r, g in zip(ref, got):
+        assert rel_err(r, g) < TOL
+
+
+def test_uv_finish_plain(case):
+    cfg, grid, tcfg, tgrid, a = case
+    args = [a[k] for k in ("u", "v", "Hz", "Huon", "Hvom")] + a["avg"]
+    ref = pallas_uv.uv_finish_pallas(cfg, grid, *args, interpret=True)
+    got = tuv.uv_finish(tcfg, tgrid, *_t(args))
+    assert len(ref) == len(got) == 6
+    for r, g in zip(ref, got):
+        assert rel_err(r, g) < TOL
+
+
+def test_spline_vdiff_plain(case):
+    cfg, grid, tcfg, _, a = case
+    pre = a["Hz"][None] * a["t"]
+    ref = pallas_vdiff.spline_vdiff_pallas(
+        cfg, [pre[i] for i in range(cfg.NT)], a["Hz"], a["Akt"],
+        interpret=True)
+    got = tvdiff.spline_vdiff(tcfg, *_t([pre, a["Hz"], a["Akt"]]))
+    assert rel_err(ref, got) < TOL
+
+
+# --------------------------------------------------------------------------
+# gate test: which Pallas kernels roms_tpu's step runs on one TPU
+# --------------------------------------------------------------------------
+
+def _fired(cfg):
+    from roms_tpu.ops import (pallas_flux, pallas_prep, pallas_prsgrd,
+                              pallas_step2d, pallas_uvmix)
+    vmix_lmd = cfg.mixing.vmix == "lmd"
+    gates = {
+        "flux": pallas_flux.use_pallas_flux(cfg),
+        "prep": pallas_prep.use_pallas_prep(cfg) and vmix_lmd,
+        "rho": pallas_rho.use_pallas_rho(cfg)
+        and not (pallas_prep.use_pallas_prep(cfg) and vmix_lmd),
+        "tadv": pallas_tadv.use_pallas_tadv(cfg, "predictor")
+        or pallas_tadv.use_pallas_tadv(cfg, "corrector"),
+        "prsgrd": cfg.prsgrd == "djs"
+        and pallas_prsgrd.use_pallas_prsgrd(cfg),
+        "rhs3d": jrhs3d._use_pallas_rhs3d(cfg),
+        "uvmix": cfg.mixing.visc2 > 0.0
+        and pallas_uvmix.use_pallas_uvmix(cfg),
+        "fast_loop_pallas_res": pallas_step2d.use_pallas_fastloop_res(
+            cfg, cfg.shape2d),
+        "fast_loop_pallas": pallas_step2d.use_pallas_step2d(cfg),
+        "uv": pallas_uv.use_pallas_uv(cfg),
+        "vdiff": cfg.mixing.splines_vdiff
+        and pallas_vdiff.use_pallas_vdiff(cfg),
+    }
+    return {k for k, on in gates.items() if on}
+
+
+def test_slice_covers_the_tpu_kernels_of_double_gyre(monkeypatch):
+    for var in [v for v in os.environ if v.startswith("ROMS_TPU_")]:
+        monkeypatch.delenv(var)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    dg = ia.double_gyre_config(Lm=512, Mm=1024, N=30, dt=240.0,
+                               dtype="float32")
+    assert _fired(dg) == {"rho", "tadv", "rhs3d", "uv", "vdiff"}
+    # the same probe sees the nine kernels of the EW-periodic channel
+    from roms_tpu.functionals import upwelling
+    up = upwelling.make_config(dtype="float32")
+    assert _fired(up) == {"flux", "rho", "tadv", "prsgrd", "rhs3d",
+                          "uvmix", "fast_loop_pallas_res", "uv", "vdiff"}
