@@ -2,23 +2,29 @@
 """GPU smoke test of roms_tpu_torch, the PyTorch/CUDA port of roms_tpu.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
-    python3 chip_smoke.py --profile  # only: where the full-width step's
+    python3 chip_smoke.py --profile  # only: where the full-width steps'
                                      # time goes (CUDA events, profiler)
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
      roms_tpu_torch/csrc (one nvcc per source, all started together);
-  2. kernel phase: each of the seven kernel entry points against its
-     plain PyTorch version on the card, same inputs, float64 (rel
-     <= 1e-12) and float32 (rel <= 1e-5: FMA contraction and
-     reassociation), at a moderate and at the full-width shape;
-  3. slice parity: DOUBLE_GYRE Lm=64, Mm=128, N=10, float64, 5 steps,
-     kernels vs `Model(use_kernels=False)`, within 1e-10*max|x| + 5e-14;
-  4. full width: DOUBLE_GYRE Lm=512, Mm=1024, N=30 (15.7M rho points)
-     in float32, dt=240 s, ndtfast=30, 10 steps after a warm-up step:
-     finite fields, interior volume conserved, ms/step from CUDA events,
-     no plain version called, each kernel's launches in that run and its
-     time next to its plain version and its memory bound.
+  2. kernel phase: each kernel entry point against its plain PyTorch
+     version on the card, same inputs, float64 (rel <= 1e-12; the fast
+     loop, 2 x 42 substeps, 1e-11) and float32 (rel <= 1e-5), on seeded
+     perturbations of the DOUBLE_GYRE state (the seven closed-basin entry
+     points) and of the UPWELLING state (all twelve, EW-periodic lanes),
+     each at a moderate size whose Mj is not a multiple of the block size
+     and at the full width;
+  3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
+     steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
+     and UPWELLING Lm=48, Mm=64, N=16 from a zonally varying state;
+  4. full width, float32, 10 steps after a warm-up step, ms/step from
+     CUDA events, each entry point's launches in the run and no plain
+     version called: DOUBLE_GYRE Lm=512, Mm=1024, N=30 (dt=240 s; finite
+     fields, interior volume conserved) and UPWELLING Lm=512, Mm=1024,
+     N=16 (the published dx = 1 km, dt = 300 s, ndtfast = 30; finite
+     fields, interior volume, zeta x-uniform), then each kernel's time at
+     the UPWELLING shapes next to its plain version and its memory bound.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -32,6 +38,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12            # H100 SXM float32, non-tensor
 TOL = {"float64": 1e-12, "float32": 1e-5}
+# the fast loop's float64 bound: 2 x 42 substeps, the reference's own
+# bound for this engine (tests/test_pallas_step2d.py:56)
+TOL_F64 = {"fast_loop_res": 1e-11}
 DEVICE = "cuda"
 FAILURES = []       # kernel-vs-plain excesses, reported at phase end
 
@@ -74,11 +83,15 @@ def main():
     _lib.lib()
 
     if "--profile" in sys.argv[1:]:
-        profile_step(torch)
+        for app in APPS:
+            profile_step(torch, app)
         return 0
     kernel_phase_checks(torch)
-    slice_parity(torch)
-    table = full_width(torch)
+    for app in APPS:
+        slice_parity(torch, app)
+    counts = {app: full_width(torch, app) for app in APPS}
+    table = kernel_table(torch, "upwelling", counts["upwelling"])
+    kernel_table(torch, "double_gyre", counts["double_gyre"])
     files = sorted({os.path.basename(src) for src, _ in SOURCES.values()})
     print(f"kernels: {files} ({len(files)} files, {len(table)} entry "
           f"points)", flush=True)
@@ -108,24 +121,66 @@ SOURCES = {
                   "roms_tpu/ops/pallas_uv.py:214"),
     "spline_vdiff": ("roms_tpu_torch/csrc/vdiff.cu",
                      "roms_tpu/ops/pallas_vdiff.py:37"),
+    "flux_omega": ("roms_tpu_torch/csrc/flux.cu",
+                   "roms_tpu/ops/pallas_flux.py:152"),
+    "omega": ("roms_tpu_torch/csrc/flux.cu",
+              "roms_tpu/ops/pallas_flux.py:185"),
+    "prsgrd32": ("roms_tpu_torch/csrc/prsgrd.cu",
+                 "roms_tpu/ops/pallas_prsgrd.py:191"),
+    "uv3dmix2_s": ("roms_tpu_torch/csrc/uvmix.cu",
+                   "roms_tpu/ops/pallas_uvmix.py:143"),
+    "fast_loop_res": ("roms_tpu_torch/csrc/step2d.cu",
+                      "roms_tpu/ops/pallas_step2d.py:804"),
 }
+SLICE1 = list(SOURCES)[:7]
 
-# flops per output point (per level for column kernels), counted from
-# the kernels' arithmetic; only used for the operations bound
+# flops per output point (per level for column kernels, per substep for
+# the fast loop), counted by hand from the plain versions' arithmetic,
+# each intermediate once; only used for the operations bound
 FLOPS_PER_POINT = {"rho_eos": 12, "tadv_predictor": 90,
                    "tadv_corrector": 80, "rhs3d_momentum": 220,
-                   "uv_solve": 60, "uv_finish": 30, "spline_vdiff": 25}
+                   "uv_solve": 60, "uv_finish": 30, "spline_vdiff": 25,
+                   "flux_omega": 15, "omega": 7, "prsgrd32": 130,
+                   "uv3dmix2_s": 60, "fast_loop_res": 470}
+# (Mj, Li) planes a fast-loop substep after the first reads or writes,
+# each counted once per phase (csrc/step2d.cu: flux 18 + 12, zeta 10 +
+# 11, momentum 37 + 39), for the per-substep traffic line
+FAST_LOOP_PLANES_PER_SUBSTEP = 127
+
+APPS = {
+    "double_gyre": dict(entries=SLICE1, dt=240.0,
+                        kernel_sizes=((128, 256, 30), (512, 1024, 30)),
+                        parity=(64, 128, 10, 1800.0),
+                        full=(512, 1024, 30)),
+    "upwelling": dict(entries=list(SOURCES), dt=300.0,
+                      kernel_sizes=((100, 203, 16), (512, 1024, 16)),
+                      parity=(48, 64, 16, 300.0),
+                      full=(512, 1024, 16)),
+}
 
 
-def setup(torch, Lm, Mm, N, dtype, seed=7):
-    """DOUBLE_GYRE config/grid/state at the given size with seeded
-    perturbations, made on the card."""
-    from roms_tpu_torch.functionals import idealized as ia
+def app_setup(app, Lm, Mm, N, dtype, dt):
+    """(cfg, grid, initial state, model kwargs) of an application."""
+    if app == "double_gyre":
+        from roms_tpu_torch.functionals import idealized as ia
+        cfg = ia.double_gyre_config(Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=30,
+                                    dtype=dtype)
+        grid = ia.double_gyre_grid(cfg, device=DEVICE)
+        return cfg, grid, ia.double_gyre_initial(cfg, grid), dict(
+            forcing_fn=ia.double_gyre_forcing_fn(cfg, grid))
+    from roms_tpu_torch.functionals import upwelling as up
+    cfg = up.make_config(Lm=Lm, Mm=Mm, N=N, dt=dt, dtype=dtype)
+    grid = up.make_grid(cfg, device=DEVICE)
+    return cfg, grid, up.make_initial(cfg, grid), dict(
+        forcing_fn=up.make_forcing_fn(cfg, grid),
+        vmix_fn=up.make_vmix_fn(cfg))
+
+
+def setup(torch, Lm, Mm, N, dtype, seed=7, app="double_gyre"):
+    """config/grid/state of an application at the given size with seeded
+    (zonally varying) perturbations, made on the card."""
     from roms_tpu_torch.grid.depth import set_depth
-    cfg = ia.double_gyre_config(Lm=Lm, Mm=Mm, N=N, dt=240.0, ndtfast=30,
-                                dtype=dtype)
-    grid = ia.double_gyre_grid(cfg, device=DEVICE)
-    s = ia.double_gyre_initial(cfg, grid)
+    cfg, grid, s, _ = app_setup(app, Lm, Mm, N, dtype, APPS[app]["dt"])
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     tdt = grid.dtype
 
@@ -143,12 +198,15 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
     from roms_tpu_torch.core.step3d_uv import ab3_lead
     from roms_tpu_torch.core.omega import omega
     from roms_tpu_torch.grid.depth import set_massflux
+    from roms_tpu_torch.ops import stencil as st
     N = cfg.N
-    shp3 = (N,) + cfg.shape2d
+    shp2, shp3 = cfg.shape2d, (N,) + cfg.shape2d
     t = s.t + 0.1 * rnd(*s.t.shape)
     u = 0.1 * rnd(*shp3) * grid.umask
     v = 0.1 * rnd(*shp3) * grid.vmask
     Huon, Hvom = set_massflux(grid, u, v, Hz)
+    if cfg.bc.ew_periodic:
+        Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
     W = omega(cfg, grid, Huon, Hvom, z_w)
     pmn = grid.pm * grid.pn
     if name == "rho_eos":
@@ -169,33 +227,62 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
         ru, rv = rnd(*shp3), rnd(*shp3)
         args = (cfg, grid, u, v, Hz, Huon, Hvom, W, ru, rv)
         return args, [u, v, Hz, Huon, Hvom, W, ru, rv, grid.fomn]
-    Akv = 1e-3 * torch.abs(rnd(N + 1, *cfg.shape2d)) + 1e-5
+    Akv = 1e-3 * torch.abs(rnd(N + 1, *shp2)) + 1e-5
     D = torch.sum(Hz, dim=0)
     if name == "uv_solve":
         u_part, v_part = u * Hz, v * Hz
         ru, rv = 1e-2 * rnd(*shp3), 1e-2 * rnd(*shp3)
-        DU1 = 0.01 * rnd(*cfg.shape2d) * D * grid.on_u
-        DV1 = 0.01 * rnd(*cfg.shape2d) * D * grid.om_v
+        DU1 = 0.01 * rnd(*shp2) * D * grid.on_u
+        DV1 = 0.01 * rnd(*shp2) * D * grid.om_v
         args = (cfg, grid, u_part, v_part, ru, rv, Hz, Akv,
                 ab3_lead(cfg, iic), DU1, DV1)
         return args, [u_part, v_part, ru, rv, Hz, Akv, grid.pm, grid.pn,
                       grid.umask, grid.vmask, grid.on_u, grid.om_v, DU1,
                       DV1]
     if name == "uv_finish":
-        DU = [0.01 * rnd(*cfg.shape2d) * D * m
+        DU = [0.01 * rnd(*shp2) * D * m
               for m in (grid.on_u, grid.om_v, grid.on_u, grid.om_v)]
         args = (cfg, grid, u, v, Hz, Huon, Hvom, *DU)
         return args, [u, v, Hz, Huon, Hvom, grid.umask, grid.vmask,
                       grid.on_u, grid.om_v, *DU]
     if name == "spline_vdiff":
-        Akt = 1e-3 * torch.abs(rnd(cfg.NAT, N + 1, *cfg.shape2d)) + 1e-6
+        Akt = 1e-3 * torch.abs(rnd(cfg.NAT, N + 1, *shp2)) + 1e-6
         pre = Hz * t
         return (cfg, pre, Hz, Akt), [pre, Hz, Akt]
+    if name == "flux_omega":
+        args = (cfg, grid, u, v, Hz, z_w)
+        return args, [u, v, Hz, z_w, grid.on_u, grid.om_v]
+    if name == "omega":
+        return (cfg, grid, Huon, Hvom, z_w), [Huon, Hvom, z_w]
+    from roms_tpu_torch.ops import rho as rho_op
+    rho, _, rhoA, rhoS, _ = rho_op.rho_eos_plain(cfg, t, z_r, Hz, z_w)
+    if name == "prsgrd32":
+        args = (cfg, grid, rho, z_r, z_w, Hz)
+        return args, [rho, z_r, Hz, z_w[N], grid.umask, grid.vmask,
+                      grid.on_u, grid.om_v]
+    if name == "uv3dmix2_s":
+        from roms_tpu_torch.ops.uvmix import METRICS
+        rufrc = 1e-5 * rnd(*shp2) * grid.om_u * grid.on_u
+        rvfrc = 1e-5 * rnd(*shp2) * grid.om_v * grid.on_v
+        args = (cfg, grid, u, v, u * Hz, v * Hz, Hz, rufrc, rvfrc)
+        return args, [u, v, Hz, u * Hz, v * Hz, rufrc, rvfrc] + [
+            getattr(grid, n) for n in METRICS]
+    if name == "fast_loop_res":
+        from roms_tpu_torch.core.weights import power_law_weights
+        from roms_tpu_torch.ops.step2d import STATICS
+        nfast, w1, w2 = power_law_weights(cfg.ndtfast)
+        ubar = 0.05 * rnd(*shp2) * grid.umask
+        vbar = 0.05 * rnd(*shp2) * grid.vmask
+        f2 = [1e-5 * rnd(*shp2) * grid.om_u * grid.on_u for _ in range(6)]
+        dyn = [z_w[N], ubar, vbar, f2[0], f2[1], rhoS, rhoA, *f2[2:]]
+        args = (cfg, grid, nfast, w1, w2, True, *dyn, iic)
+        return args, dyn + [getattr(grid, n) for n in STATICS]
     raise KeyError(name)
 
 
 def entry_fns(name):
-    from roms_tpu_torch.ops import rho, rhs3d, tadv, uv, vdiff
+    from roms_tpu_torch.ops import (flux, prsgrd, rho, rhs3d, step2d, tadv,
+                                    uv, uvmix, vdiff)
     return {
         "rho_eos": (rho.rho_eos, rho.rho_eos_plain),
         "tadv_predictor": (tadv.predictor, tadv.predictor_plain),
@@ -205,18 +292,28 @@ def entry_fns(name):
         "uv_solve": (uv.uv_solve, uv.uv_solve_plain),
         "uv_finish": (uv.uv_finish, uv.uv_finish_plain),
         "spline_vdiff": (vdiff.spline_vdiff, vdiff.spline_vdiff_plain),
+        "flux_omega": (flux.flux_omega, flux.flux_omega_plain),
+        "omega": (flux.omega, flux.omega_plain),
+        "prsgrd32": (prsgrd.prsgrd32, prsgrd.prsgrd32_plain),
+        "uv3dmix2_s": (uvmix.uv3dmix2_s, uvmix.uv3dmix2_s_plain),
+        "fast_loop_res": (step2d.fast_loop_res,
+                          step2d.fast_loop_res_plain),
     }[name]
 
 
-def as_tuple(x):
+def outputs(x):
+    """The output tensors of an entry point: a FastCarry gives its 16
+    carry fields (ru0/rv0 are its inputs)."""
+    if hasattr(x, "avg"):
+        return tuple(x)[:11] + tuple(x.avg)
     return x if isinstance(x, tuple) else (x,)
 
 
 def compare(torch, name, args, dtype):
     """Kernel vs plain on the same inputs; returns (max rel, max abs)."""
     kern, plain = entry_fns(name)
-    got = as_tuple(kern(*args))
-    ref = as_tuple(plain(*args))
+    got = outputs(kern(*args))
+    ref = outputs(plain(*args))
     torch.cuda.synchronize()
     rel = abs_err = 0.0
     for g, r in zip(got, ref):
@@ -226,37 +323,41 @@ def compare(torch, name, args, dtype):
         scale = float(r.abs().max()) + 1e-300
         rel = max(rel, d / scale)
         abs_err = max(abs_err, d)
-    if rel > TOL[dtype]:
-        FAILURES.append(f"{name} {dtype}: rel err {rel:.3e} > "
-                        f"{TOL[dtype]:.0e}")
+    tol = TOL_F64.get(name, TOL[dtype]) if dtype == "float64" \
+        else TOL[dtype]
+    if rel > tol:
+        FAILURES.append(f"{name} {dtype}: rel err {rel:.3e} > {tol:.0e}")
     return rel, abs_err
 
 
 def kernel_phase_checks(torch):
     from roms_tpu_torch.ops import _lib
-    for (Lm, Mm, N) in ((128, 256, 30), (512, 1024, 30)):
-        for dtype in ("float64", "float32"):
-            env = setup(torch, Lm, Mm, N, dtype)
-            for name in SOURCES:
-                iics = (0, 1, 5) if name in ("tadv_predictor",
-                                             "uv_solve") else (5,)
-                for iic in iics:
-                    args, _ = entry_inputs(torch, name, *env, iic)
-                    rel, abs_err = compare(torch, name, args, dtype)
-                    print(f"kernel {name:15s} {dtype} N={N} Mj={Mm + 2} "
-                          f"Li={Lm + 2} iic={iic}: max rel {rel:.3e} "
-                          f"max abs {abs_err:.3e}", flush=True)
-            # the rho kernel's JM95 branch (off the DOUBLE_GYRE path)
-            args, _ = entry_inputs(torch, "rho_eos", *env, 5)
-            cfg = args[0]
-            args = (cfg.replace(eos=cfg.eos.__class__(linear=False)),
-                    *args[1:])
-            rel, abs_err = compare(torch, "rho_eos", args, dtype)
-            print(f"kernel rho_eos JM95     {dtype} N={N} Mj={Mm + 2} "
-                  f"Li={Lm + 2}: max rel {rel:.3e} max abs {abs_err:.3e}",
-                  flush=True)
-            del env
-            torch.cuda.empty_cache()
+    for app, spec in APPS.items():
+        for (Lm, Mm, N) in spec["kernel_sizes"]:
+            for dtype in ("float64", "float32"):
+                env = setup(torch, Lm, Mm, N, dtype, app=app)
+                for name in spec["entries"]:
+                    iics = (0, 1, 5) if name in (
+                        "tadv_predictor", "uv_solve") else (
+                        (0, 5) if name == "fast_loop_res" else (5,))
+                    for iic in iics:
+                        args, _ = entry_inputs(torch, name, *env, iic)
+                        rel, abs_err = compare(torch, name, args, dtype)
+                        print(f"kernel {app:11s} {name:15s} {dtype} N={N} "
+                              f"Mj={Mm + 2} Li={Lm + 2} iic={iic}: max rel "
+                              f"{rel:.3e} max abs {abs_err:.3e}", flush=True)
+                if app == "double_gyre":
+                    # the rho kernel's JM95 branch (off both paths)
+                    args, _ = entry_inputs(torch, "rho_eos", *env, 5)
+                    cfg = args[0]
+                    args = (cfg.replace(eos=cfg.eos.__class__(linear=False)),
+                            *args[1:])
+                    rel, abs_err = compare(torch, "rho_eos", args, dtype)
+                    print(f"kernel rho_eos JM95     {dtype} N={N} "
+                          f"Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
+                          f"abs {abs_err:.3e}", flush=True)
+                del env
+                torch.cuda.empty_cache()
     if FAILURES:
         fail("kernel phase:\n  " + "\n  ".join(FAILURES))
     _lib.reset_launches()
@@ -266,35 +367,52 @@ def kernel_phase_checks(torch):
 # slice parity and full width
 # --------------------------------------------------------------------------
 
-def run_model(torch, Lm, Mm, N, dtype, nsteps, use_kernels, dt, ndtfast):
+def make_model(torch, app, Lm, Mm, N, dtype, use_kernels, dt, perturb):
+    """Model and initial state; `perturb` adds seeded zonally varying
+    noise to u, v and t, so EW-periodic seam errors cannot cancel."""
+    from roms_tpu_torch.core.state import initial_state
     from roms_tpu_torch.core.stepping import Model
-    from roms_tpu_torch.functionals import idealized as ia
-    cfg = ia.double_gyre_config(Lm=Lm, Mm=Mm, N=N, dt=dt,
-                                ndtfast=ndtfast, dtype=dtype)
-    grid = ia.double_gyre_grid(cfg, device=DEVICE)
-    s = ia.double_gyre_initial(cfg, grid)
-    model = Model(cfg, grid, ia.double_gyre_forcing_fn(cfg, grid),
-                  use_kernels=use_kernels)
-    return model, model.run(s, nsteps)
+    cfg, grid, s, kw = app_setup(app, Lm, Mm, N, dtype, dt)
+    if perturb:
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        shp3 = (N,) + cfg.shape2d
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=DEVICE,
+                               dtype=grid.dtype)
+        s = initial_state(cfg, grid, u=0.05 * rnd(*shp3) * grid.umask,
+                          v=0.05 * rnd(*shp3) * grid.vmask,
+                          t=s.t + 0.1 * rnd(*s.t.shape))
+    return Model(cfg, grid, use_kernels=use_kernels, **kw), s
 
 
-def slice_parity(torch):
+def slice_parity(torch, app):
     from roms_tpu_torch.ops import _lib
-    _, a = run_model(torch, 64, 128, 10, "float64", 5, False, 1800.0, 30)
+    Lm, Mm, N, dt = APPS[app]["parity"]
+    perturb = app == "upwelling"
+    model, s = make_model(torch, app, Lm, Mm, N, "float64", False, dt,
+                          perturb)
+    a = model.run(s, 5)
     counts = dict(_lib.launches)
     if any(counts.values()):
         fail(f"use_kernels=False launched kernels: {counts}")
-    _, b = run_model(torch, 64, 128, 10, "float64", 5, True, 1800.0, 30)
+    model, s = make_model(torch, app, Lm, Mm, N, "float64", True, dt,
+                          perturb)
+    b = model.run(s, 5)
+    for name in APPS[app]["entries"]:
+        if _lib.launches[name] != 5:
+            fail(f"{app} parity: {name} launched {_lib.launches[name]} "
+                 "times in 5 steps")
     for f in ("zeta", "ubar", "vbar", "u", "v", "t"):
         x, y = getattr(a, f), getattr(b, f)
         if not torch.isfinite(y).all():
-            fail(f"slice parity: {f} not finite")
+            fail(f"{app} slice parity: {f} not finite")
         d = float((x - y).abs().max())
         scale = float(x.abs().max())
-        print(f"slice parity {f:5s}: max|diff| {d:.3e}  max|x| {scale:.3e}",
-              flush=True)
+        print(f"{app} slice parity {f:5s}: max|diff| {d:.3e}  max|x| "
+              f"{scale:.3e}", flush=True)
         if d >= 1e-10 * scale + 5e-14:
-            fail(f"slice parity {f}: {d:.3e} vs {scale:.3e}")
+            fail(f"{app} slice parity {f}: {d:.3e} vs {scale:.3e}")
     _lib.reset_launches()
 
 
@@ -336,16 +454,14 @@ def plain_calls_during(run):
             setattr(mod, attr, plain)
 
 
-def full_width(torch):
-    from roms_tpu_torch.core.stepping import Model
-    from roms_tpu_torch.functionals import idealized as ia
-    from roms_tpu_torch.ops import _lib
-    Lm, Mm, N, nsteps = 512, 1024, 30, 10
-    cfg = ia.double_gyre_config(Lm=Lm, Mm=Mm, N=N, dt=240.0, ndtfast=30,
-                                dtype="float32")
-    grid = ia.double_gyre_grid(cfg, device=DEVICE)
-    s = ia.double_gyre_initial(cfg, grid)
-    model = Model(cfg, grid, ia.double_gyre_forcing_fn(cfg, grid))
+def full_width(torch, app):
+    """The app's full-width float32 run; returns each entry point's
+    launches in its 10 measured steps."""
+    from roms_tpu_torch.ops import _lib, step2d
+    Lm, Mm, N = APPS[app]["full"]
+    nsteps = 10
+    model, s = make_model(torch, app, Lm, Mm, N, "float32", True,
+                          APPS[app]["dt"], False)
     s = model.step(s)                      # warm-up step
     torch.cuda.synchronize()
 
@@ -360,44 +476,62 @@ def full_width(torch):
     wall = time.perf_counter() - t0
     counts = dict(_lib.launches)
     if plain_calls:
-        fail(f"plain versions ran on the main path: {plain_calls}")
+        fail(f"{app}: plain versions ran on the main path: {plain_calls}")
     ms_step = start.elapsed_time(end) / nsteps
-    print(f"full width DOUBLE_GYRE {Mm + 2}x{Lm + 2}x{N} float32: "
-          f"{ms_step:.3f} ms/step (CUDA events), host wall "
-          f"{1e3 * wall / nsteps:.3f} ms/step, nfast={model.nfast}",
-          flush=True)
-    print(f"launches in {nsteps} steps: {counts}; plain-version calls: 0",
+    print(f"full width {app} {Mm + 2}x{Lm + 2}x{N} float32: {ms_step:.3f} "
+          f"ms/step (CUDA events), host wall {1e3 * wall / nsteps:.3f} "
+          f"ms/step, nfast={model.nfast}", flush=True)
+    print(f"{app} launches in {nsteps} steps: {counts}; plain-version "
+          f"calls: 0; fast loop CUDA launches per call: "
+          f"{step2d.PHASES * model.nfast if counts['fast_loop_res'] else 0}",
           flush=True)
     for name, n in counts.items():
-        if n != nsteps:
-            fail(f"{name}: {n} launches in {nsteps} steps, expected "
-                 f"{nsteps}")
+        want = nsteps if name in APPS[app]["entries"] else 0
+        if n != want:
+            fail(f"{app} {name}: {n} launches in {nsteps} steps, expected "
+                 f"{want}")
     for f in ("zeta", "ubar", "vbar", "u", "v", "t"):
         x = getattr(s, f)
         if not torch.isfinite(x).all():
-            fail(f"full width: {f} not finite")
+            fail(f"full width {app}: {f} not finite")
     zi = s.zeta[1:-1, 1:-1].double()
     vol = float(zi.mean())
     zmax = float(zi.abs().max())
-    print(f"interior mean zeta {vol:.3e} (max|zeta| {zmax:.3e}), "
+    print(f"{app} interior mean zeta {vol:.3e} (max|zeta| {zmax:.3e}), "
           f"max|u| {float(s.u.abs().max()):.3e}", flush=True)
     # float32 roundoff: the interior mean stays within eps32*max|zeta|
     if not abs(vol) <= 1.2e-7 * zmax:
-        fail("interior volume not conserved to float32 roundoff")
+        fail(f"{app}: interior volume not conserved to float32 roundoff")
+    if app == "upwelling":
+        # x-uniform initial state and wind: zeta stays x-uniform
+        xu = float((s.zeta - s.zeta[:, :1]).abs().max())
+        print(f"upwelling zeta x-uniformity max|zeta - zeta[:, 0]| "
+              f"{xu:.3e}", flush=True)
+        if not xu <= 1e-5 * zmax:
+            fail("upwelling: zeta lost its x-uniformity")
+    return counts
 
-    # per-kernel numbers at the main path's shapes
-    env = setup(torch, Lm, Mm, N, "float32")
+
+def kernel_table(torch, app, counts):
+    """Each of the app's entry points timed at its full-width float32
+    shapes, beside its plain version's time and its bound, with its
+    launches from the full-width run; rows of the kernels JSON."""
+    Lm, Mm, N = APPS[app]["full"]
+    env = setup(torch, Lm, Mm, N, "float32", app=app)
     table = []
-    for name, (src, rep) in SOURCES.items():
+    for name in APPS[app]["entries"]:
+        src, rep = SOURCES[name]
         args, ins = entry_inputs(torch, name, *env, 5)
         rel, abs_err = compare(torch, name, args, "float32")
         if FAILURES:
             fail(FAILURES[-1])
         kern, plain = entry_fns(name)
-        outs = as_tuple(kern(*args))
+        outs = outputs(kern(*args))
         byts = nbytes(ins) + nbytes(outs)
         npts = outs[0].numel()
         flops = FLOPS_PER_POINT[name] * npts
+        if name == "fast_loop_res":
+            flops *= args[2]
         t_bytes = 1e3 * byts / HBM_BYTES_PER_S
         t_ops = 1e3 * flops / FP32_FLOPS
         ms = cuda_ms(torch, lambda: kern(*args), 20)
@@ -408,25 +542,31 @@ def full_width(torch):
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": None}
-        print(f"{name:15s} {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
+        print(f"{app} {name:15s} {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{byts / 1e6:.1f} MB)  launches/step "
-              f"{counts[name] / nsteps:g}  rel {rel:.2e}", flush=True)
+              f"{counts[name] / 10:g}  rel {rel:.2e}", flush=True)
+        if name == "fast_loop_res":
+            sub = FAST_LOOP_PLANES_PER_SUBSTEP * outs[0].numel() * \
+                outs[0].element_size()
+            print(f"{app} fast_loop_res per substep: "
+                  f"{ms / args[2]:.4f} ms, {sub / 1e6:.1f} MB touched once "
+                  f"per phase -> {1e3 * sub / HBM_BYTES_PER_S:.4f} ms",
+                  flush=True)
         table.append(row)
+    del env
+    torch.cuda.empty_cache()
     return table
 
 
-def profile_step(torch):
-    """Breakdown of one full-width float32 step: the fast barotropic
-    loop vs the rest (CUDA events over 3 steps), then torch.profiler's
-    device time by kernel over one step and the device's idle share."""
-    from roms_tpu_torch.core.stepping import Model
-    from roms_tpu_torch.functionals import idealized as ia
-    cfg = ia.double_gyre_config(Lm=512, Mm=1024, N=30, dt=240.0,
-                                ndtfast=30, dtype="float32")
-    grid = ia.double_gyre_grid(cfg, device=DEVICE)
-    s = ia.double_gyre_initial(cfg, grid)
-    model = Model(cfg, grid, ia.double_gyre_forcing_fn(cfg, grid))
+def profile_step(torch, app):
+    """Breakdown of one full-width float32 step of `app`: the fast
+    barotropic loop vs the rest (CUDA events over 3 steps), then
+    torch.profiler's device time by kernel over one step and the device's
+    idle share."""
+    Lm, Mm, N = APPS[app]["full"]
+    model, s = make_model(torch, app, Lm, Mm, N, "float32", True,
+                          APPS[app]["dt"], False)
     s = model.step(s)
     inner = model.fast_loop
     fast_ms = []
@@ -450,7 +590,7 @@ def profile_step(torch):
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / 3
     fl = sum(a.elapsed_time(b) for a, b in fast_ms) / 3
-    print(f"step {step_ms:.3f} ms: fast loop {fl:.3f} ms "
+    print(f"{app} step {step_ms:.3f} ms: fast loop {fl:.3f} ms "
           f"({model.nfast} substeps), rest {step_ms - fl:.3f} ms",
           flush=True)
     model.fast_loop = inner
@@ -470,16 +610,18 @@ def profile_step(torch):
     launches = sum(e.count for e in rows)
     # the profiler slows the host, so the idle share is taken against
     # the unprofiled step time above
-    print(f"profiled step: wall {wall_ms:.3f} ms (profiler on), device "
-          f"busy {busy_us / 1e3:.3f} ms, idle share vs the unprofiled "
-          f"step {1 - busy_us / 1e3 / step_ms:.3f}, {launches} device "
-          f"kernels", flush=True)
-    ours = [e for e in rows if any(
-        f"{k}_kernel<" in e.key for k in ("rho", "tadv", "rhs3d", "uv_solve",
-                                          "uv_finish", "vdiff"))]
+    print(f"{app} profiled step: wall {wall_ms:.3f} ms (profiler on), "
+          f"device busy {busy_us / 1e3:.3f} ms, idle share vs the "
+          f"unprofiled step {1 - busy_us / 1e3 / step_ms:.3f}, {launches} "
+          f"device kernels", flush=True)
+    ours = [e for e in rows if any(f"{k}<" in e.key for k in (
+        "rho_kernel", "tadv_kernel", "rhs3d_kernel", "uv_solve_kernel",
+        "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
+        "prsgrd_kernel", "uvmix_kernel", "flux_phase", "zeta_phase",
+        "mom_phase"))]
     ours_us = sum(e.self_device_time_total for e in ours)
-    print(f"the port's CUDA kernels: {ours_us / 1e3:.3f} ms device time "
-          f"in {sum(e.count for e in ours)} launches", flush=True)
+    print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "
+          f"time in {sum(e.count for e in ours)} launches", flush=True)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}", flush=True)

@@ -4,9 +4,9 @@ uv3dmix2_s.h, uv3dmix4_s.h).
 
 The harmonic forms are forward-Euler corrections of the Hz-weighted
 corrector seeds; uv3dmix also feeds the vertically integrated stress
-divergence into rufrc/rvfrc.  The fused uvmix kernel needs an
-EW-periodic channel and comes with the UPWELLING slice; the rotated
-(geo/iso) and Smagorinsky forms come later.
+divergence into rufrc/rvfrc.  On the EW-periodic channel uv3dmix2_s
+runs as a kernel (kernel 8, ops/uvmix.py), whose plain version is the
+function below; the rotated (geo/iso) and Smagorinsky forms come later.
 """
 
 from __future__ import annotations
@@ -95,11 +95,18 @@ def _ring(cfg, *fs):
 
 
 def uv3dmix2_s(cfg: ModelConfig, grid: Grid, u, v, u_part, v_part, Hz,
-               rufrc, rvfrc):
+               rufrc, rvfrc, use_kernels: bool = False):
     """Harmonic viscosity along s (uv3dmix2_s.h:120-222); returns
-    (u_part, v_part, rufrc, rvfrc)."""
+    (u_part, v_part, rufrc, rvfrc).  With use_kernels, configurations in
+    the uvmix kernel's class go through its wrapper (roms_tpu/core/
+    hmix.py:58-66)."""
     if cfg.mixing.visc2 <= 0.0:
         return u_part, v_part, rufrc, rvfrc
+    if use_kernels:
+        from ..ops import uvmix
+        if uvmix.covers(cfg):
+            return uvmix.uv3dmix2_s(cfg, grid, u, v, u_part, v_part, Hz,
+                                    rufrc, rvfrc)
     dt = cfg.dt
     pn, pm = grid.pn, grid.pm
     upn = pn + st.im1(pn)

@@ -2,10 +2,12 @@
 averaging (port of roms_tpu/core/step2d.py; step2d_LF_AM3.h:163-3058
 and the fast-loop orchestration of main3d.F:810-918).
 
-The substeps run as a Python loop of plain tensor code.  The Pallas
-fast loops (pallas_step2d) need an EW-periodic channel, so on the
-closed DOUBLE_GYRE basin roms_tpu runs this plain form too; their CUDA
-counterpart comes with the UPWELLING slice.
+Two engines, switched as roms_tpu/core/step2d.py:592-616 switches
+them: on the EW-periodic channel class (ops/step2d.py `covers`) all
+substeps run in the fast-loop kernel (kernel 9), elsewhere, as on the
+closed DOUBLE_GYRE basin, as a Python loop of plain tensor code, which
+is also the kernel's plain version.  Either way `aux_pass` finishes the
+fast-time averages.
 """
 
 from __future__ import annotations
@@ -213,16 +215,21 @@ def _uv_bc(cfg, u, v):
             boundary.bc_v(v, cfg.bc.vbar, cfg.gamma2))
 
 
-def make_fast_loop(cfg: ModelConfig, nfast: int, w1, w2,
-                   var_rho: bool = True):
-    """Build the fast barotropic loop.
+def ab3_coefs(iic: int):
+    """(a1, a2, a3) of the 2D<-3D forcing extrapolation, AB3 in the
+    baroclinic step count (step2d_LF_AM3.h:2190-2425)."""
+    a1 = 1.0 if iic == 0 else (1.5 if iic == 1 else 23.0 / 12.0)
+    a2 = 0.0 if iic == 0 else (0.5 if iic == 1 else 16.0 / 12.0)
+    a3 = 0.0 if iic <= 1 else 5.0 / 12.0
+    return a1, a2, a3
 
-    nfast, w1, w2: from core.weights.power_law_weights (0-based numpy;
-    weight(1,i) of the reference is w1[i-1]).  Returns
-    fast_loop(grid, zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA,
-              ru0_prev, rv0_prev, ru0_prev2, rv0_prev2, iic)
-      -> (FastAverages, rufrc_eff, rvfrc_eff, zeta, ubar, vbar)
-    """
+
+def make_substeps(cfg: ModelConfig, nfast: int, w1, w2,
+                  var_rho: bool = True):
+    """The plain substep loop: returns
+    substeps(grid, zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA,
+             ru0_prev, rv0_prev, ru0_prev2, rv0_prev2, iic) -> FastCarry
+    after nfast predictor + corrector substeps."""
     _check_supported(cfg)
     dtfast = cfg.dt / cfg.ndtfast
     w1 = [float(x) for x in w1]
@@ -275,9 +282,7 @@ def make_fast_loop(cfg: ModelConfig, nfast: int, w1, w2,
         if first:
             rufrc_c = c.rufrc - rhs_u
             rvfrc_c = c.rvfrc - rhs_v
-            a1 = 1.0 if iic == 0 else (1.5 if iic == 1 else 23.0 / 12.0)
-            a2 = 0.0 if iic == 0 else (0.5 if iic == 1 else 16.0 / 12.0)
-            a3 = 0.0 if iic <= 1 else 5.0 / 12.0
+            a1, a2, a3 = ab3_coefs(iic)
             rhs_u = rhs_u + (a1 * rufrc_c - a2 * c.ru0 + a3 * ru0_prev2)
             rhs_v = rhs_v + (a1 * rvfrc_c - a2 * c.rv0 + a3 * rv0_prev2)
             Dstp, cffdt = c.zeta + grid.h, 0.5 * dtfast
@@ -363,6 +368,45 @@ def make_fast_loop(cfg: ModelConfig, nfast: int, w1, w2,
             rufrc=rufrc_c, rvfrc=rvfrc_c,
             ru0=c.ru0, rv0=c.rv0, avg=avg)
 
+    def substeps(grid, zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA,
+                 ru0_prev, rv0_prev, ru0_prev2, rv0_prev2, iic: int):
+        zeros = torch.zeros_like(zeta0)
+        c = FastCarry(
+            zeta=zeta0, zeta_prev=zeta0,
+            ubar=ubar0, ubar_prev=ubar0,
+            vbar=vbar0, vbar_prev=vbar0,
+            rzeta_prev=zeros, rubar_prev=zeros, rvbar_prev=zeros,
+            rufrc=rufrc, rvfrc=rvfrc,
+            ru0=ru0_prev, rv0=rv0_prev,
+            avg=FastAverages(zeros, zeros, zeros, zeros, zeros))
+        for iif in range(1, nfast + 1):
+            (zeta_p, ubar_p, vbar_p, rz_m, ru_m, rv_m, rufrc_c, rvfrc_c,
+             avg) = predictor(grid, iif, c, rhoS, rhoA, iic, ru0_prev2,
+                              rv0_prev2)
+            c = corrector(grid, iif, c._replace(avg=avg), zeta_p, ubar_p,
+                          vbar_p, rz_m, ru_m, rv_m, rufrc_c, rvfrc_c,
+                          rhoS, rhoA)
+        return c
+
+    return substeps
+
+
+def make_fast_loop(cfg: ModelConfig, nfast: int, w1, w2,
+                   var_rho: bool = True, use_kernels: bool = True):
+    """Build the fast barotropic loop.
+
+    nfast, w1, w2: from core.weights.power_law_weights (0-based numpy;
+    weight(1,i) of the reference is w1[i-1]).  Returns
+    fast_loop(grid, zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA,
+              ru0_prev, rv0_prev, ru0_prev2, rv0_prev2, iic)
+      -> (FastAverages, rufrc_eff, rvfrc_eff, zeta, ubar, vbar)
+    """
+    from ..ops import step2d as op
+    substeps = make_substeps(cfg, nfast, w1, w2, var_rho)
+    w1 = [float(x) for x in w1]
+    w2 = [float(x) for x in w2]
+    kernel = use_kernels and op.covers(cfg)
+
     def aux_pass(grid, c: FastCarry):
         # auxiliary (nfast+1) predictor pass: final accumulation only
         # (step2d_LF_AM3.h:821-860); averages get only ring refreshes
@@ -388,22 +432,12 @@ def make_fast_loop(cfg: ModelConfig, nfast: int, w1, w2,
 
     def fast_loop(grid, zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA,
                   ru0_prev, rv0_prev, ru0_prev2, rv0_prev2, iic: int):
-        zeros = torch.zeros_like(zeta0)
-        c = FastCarry(
-            zeta=zeta0, zeta_prev=zeta0,
-            ubar=ubar0, ubar_prev=ubar0,
-            vbar=vbar0, vbar_prev=vbar0,
-            rzeta_prev=zeros, rubar_prev=zeros, rvbar_prev=zeros,
-            rufrc=rufrc, rvfrc=rvfrc,
-            ru0=ru0_prev, rv0=rv0_prev,
-            avg=FastAverages(zeros, zeros, zeros, zeros, zeros))
-        for iif in range(1, nfast + 1):
-            (zeta_p, ubar_p, vbar_p, rz_m, ru_m, rv_m, rufrc_c, rvfrc_c,
-             avg) = predictor(grid, iif, c, rhoS, rhoA, iic, ru0_prev2,
-                              rv0_prev2)
-            c = corrector(grid, iif, c._replace(avg=avg), zeta_p, ubar_p,
-                          vbar_p, rz_m, ru_m, rv_m, rufrc_c, rvfrc_c,
-                          rhoS, rhoA)
+        args = (zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA, ru0_prev,
+                rv0_prev, ru0_prev2, rv0_prev2, iic)
+        if kernel:
+            c = op.fast_loop_res(cfg, grid, nfast, w1, w2, var_rho, *args)
+        else:
+            c = substeps(grid, *args)
         return aux_pass(grid, c)
 
     return fast_loop

@@ -4,15 +4,18 @@ main3d.F:216-1130).
 One `step` = prep (mass fluxes, EOS, forcing, bottom drag, vertical
 mixing, omega), the predictor stage (pre_step3d, pressure gradient,
 RHS, horizontal mixing), the fast barotropic loop, new depths, then the
-3D correctors.  This slice carries the branches of the closed-basin
-DOUBLE_GYRE class; every other hook raises NotImplementedError naming
-the slice that brings it.
+3D correctors.  The port carries the branches of the closed-basin
+DOUBLE_GYRE class and of the EW-periodic UPWELLING channel; every other
+hook raises NotImplementedError naming the slice that brings it.
 
-Kernels: `Model(..., use_kernels=True)` (the default) sends the seven
-kernel entry points through their wrappers, which launch the CUDA
-kernels on CUDA tensors and take the plain PyTorch versions on CPU
-tensors.  `use_kernels=False` is the only way to run the plain
-versions on the card.
+Kernels: `Model(..., use_kernels=True)` (the default) sends the kernel
+entry points through their wrappers, which launch the CUDA kernels on
+CUDA tensors and take the plain PyTorch versions on CPU tensors.  The
+channel kernels (flux/omega, prsgrd32, uv3dmix2_s, the fast loop) run
+where their `covers(cfg)` holds, exactly where roms_tpu runs its Pallas
+kernels, and the step takes the plain code elsewhere.
+`use_kernels=False` is the only way to run the plain versions on the
+card.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from ..config import ModelConfig
 from ..grid.depth import set_depth, set_massflux
 from ..grid.grid import Grid
-from ..ops import stencil as st
+from ..ops import flux as flux_op, prsgrd as prsgrd_op, stencil as st
 from . import hmix, omega as omega_mod, prsgrd, rhs3d, set_vbc
 from .pre_step3d import pre_step3d
 from .rho_eos import rho_eos
@@ -101,7 +104,8 @@ class Model:
         self.use_kernels = bool(use_kernels)
         self.nfast, w1, w2 = power_law_weights(cfg.ndtfast)
         self.fast_loop = make_fast_loop(cfg, self.nfast, w1, w2,
-                                        var_rho=var_rho)
+                                        var_rho=var_rho,
+                                        use_kernels=self.use_kernels)
 
     def step(self, state: State) -> State:
         """One baroclinic step (main3d.F:216-1130)."""
@@ -111,16 +115,23 @@ class Model:
         iic = state.iic
 
         # ---- prep: fluxes, EOS, forcing, closures (main3d.F:348-535) ----
-        Huon, Hvom = set_massflux(grid, state.u, state.v, Hz)
-        if cfg.bc.ew_periodic:
-            Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
+        fused_flux = kern and flux_op.covers(cfg)
+        if fused_flux:
+            # set_massflux + omega in one kernel; W is reused below
+            Huon, Hvom, W = flux_op.flux_omega(cfg, grid, state.u, state.v,
+                                               Hz, z_w)
+        else:
+            Huon, Hvom = set_massflux(grid, state.u, state.v, Hz)
+            if cfg.bc.ew_periodic:
+                Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
         rho, _pden, rhoA, rhoS, _bvf = rho_eos(cfg, state.t, z_r, Hz, z_w,
                                                use_kernels=kern)
         forcing = self.forcing_fn(state.time)
         bustr, bvstr = set_vbc.bottom_drag(cfg, grid, state.u, state.v,
                                            Hz, z_r, z_w)
         Akv, Akt = self.vmix_fn(state, grid, z_w)
-        W = omega_mod.omega(cfg, grid, Huon, Hvom, z_w)
+        if not fused_flux:
+            W = omega_mod.omega(cfg, grid, Huon, Hvom, z_w)
 
         # ---- predictor stage (rhs3d.F:80-189) ---------------------------
         t_half, t_part, u_part, v_part = pre_step3d(
@@ -128,7 +139,9 @@ class Model:
             state.ru_prev, state.rv_prev, state.ru_prev2, state.rv_prev2,
             Hz, z_r, z_w, Huon, Hvom, W, forcing, bustr, bvstr, iic,
             use_kernels=kern)
-        ru, rv = prsgrd.prsgrd32(cfg, grid, rho, z_r, z_w, Hz)
+        pgf = prsgrd_op.prsgrd32 if kern and prsgrd_op.covers(cfg, grid) \
+            else prsgrd.prsgrd32
+        ru, rv = pgf(cfg, grid, rho, z_r, z_w, Hz)
         t_part = hmix.t3dmix2_s(cfg, grid, state.t, t_part, Hz)
         t_part = hmix.t3dmix4_s(cfg, grid, state.t, t_part, Hz)
         ru, rv = rhs3d.rhs3d_momentum(cfg, grid, state.u, state.v, Hz,
@@ -137,7 +150,8 @@ class Model:
         rufrc, rvfrc = rhs3d.integrate_rufrc(cfg, grid, ru, rv, forcing,
                                              bustr, bvstr)
         u_part, v_part, rufrc, rvfrc = hmix.uv3dmix2_s(
-            cfg, grid, state.u, state.v, u_part, v_part, Hz, rufrc, rvfrc)
+            cfg, grid, state.u, state.v, u_part, v_part, Hz, rufrc, rvfrc,
+            use_kernels=kern)
         u_part, v_part, rufrc, rvfrc = hmix.uv3dmix4_s(
             cfg, grid, state.u, state.v, u_part, v_part, Hz, rufrc, rvfrc)
 
@@ -154,7 +168,8 @@ class Model:
         un, vn, ubar, vbar, Huon2, Hvom2 = step3d_uv(
             cfg, grid, u_part, v_part, ru, rv, Hz2, Akv, avg, Huon, Hvom,
             iic, use_kernels=kern)
-        W2 = omega_mod.omega(cfg, grid, Huon2, Hvom2, z_w2)
+        W2 = (flux_op.omega if fused_flux else omega_mod.omega)(
+            cfg, grid, Huon2, Hvom2, z_w2)
         tn = step3d_t(cfg, grid, t_half, t_part, Huon2, Hvom2, W2, Hz2,
                       Akt, use_kernels=kern)
 

@@ -26,4 +26,21 @@ __device__ __forceinline__ T pos(T x) { return x > T(0) ? x : T(0); }
 template <typename T>
 __device__ __forceinline__ T neg(T x) { return x < T(0) ? x : T(0); }
 
+// A product rounded on its own: nvcc never contracts these intrinsics
+// into an FMA, so a product that feeds an add or subtract rounds as in
+// the plain PyTorch version, where every operation is its own kernel.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// st.periodic_x as an index map: on an EW-periodic grid lane 0 holds
+// lane Li-2 and lane Li-1 holds lane 1; i arrives in range
+__device__ __forceinline__ int ring_x(int i, int Li, bool ewp) {
+  if (!ewp) return i;
+  return i == 0 ? Li - 2 : (i == Li - 1 ? 1 : i);
+}
+
 }  // namespace roms

@@ -22,12 +22,7 @@
 
 namespace {
 
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
+using roms::mul_rn;
 
 // Jackett & McDougall (1995) coefficients (mod_eoscoef.F)
 constexpr double Q00 = +9.99842594e+2, Q01 = +6.793952e-2,

@@ -5,8 +5,10 @@
 // Replaces roms_tpu/ops/pallas_rhs3d.py:349 rhs3d_momentum_pallas
 // (pallas_call l.424); plain version ops/rhs3d.py.  Output rows j = 0 and
 // Mj-1 are zeroed, as in the Pallas kernel: dead data that bc_u/bc_v
-// overwrite.  Closed EW/NS walls only (the EW-periodic lane refresh comes
-// with the UPWELLING slice).
+// overwrite.  Closed or EW-periodic lanes: on a periodic grid the
+// curvature arrays, the ringed fluxes and the reach-2 W arm take
+// st.periodic_x's lane map (ring_x) where core/rhs3d.py applies it;
+// NS-periodic grids are refused by the wrapper.
 //
 // Bound on the H100: bytes.  Each point reads u, v, Hz, Huon, Hvom, ru, rv
 // and W once and writes ru, rv: ~10 words against ~200 flops.
@@ -31,7 +33,7 @@ struct Args {
   const T *fomn, *dndx, *dmde;
   T *out_u, *out_v;
   int N, Mj, Li;
-  int uv_cor, curv, uv_adv;
+  int uv_cor, curv, uv_adv, ewp;
 };
 
 // one k-level of a field, with jnp.roll-wrapped access
@@ -62,15 +64,19 @@ template <typename T>
 struct Level {
   F<T> u, v, hu, hv;
   int Mj, Li;
+  bool ewp;
 
-  // closed-wall clamped curvature arrays of core/rhs3d.py hadv_uv;
-  // (j, i) arrive wrapped into range
+  // lane of a ringed x-array at i in range: periodic map or identity
+  __device__ int rx(int i) const { return roms::ring_x(i, Li, ewp); }
+
+  // curvature arrays of core/rhs3d.py hadv_uv, closed-wall clamped or
+  // EW-periodic; (j, i) arrive wrapped into range
   __device__ T uxx(int j, int i) const {
-    const int ii = i == 1 ? 2 : (i == Li - 1 ? Li - 2 : i);
+    const int ii = ewp ? rx(i) : (i == 1 ? 2 : (i == Li - 1 ? Li - 2 : i));
     return u.lap_x(j, ii);
   }
   __device__ T Huxx(int j, int i) const {
-    const int ii = i == 1 ? 2 : (i == Li - 1 ? Li - 2 : i);
+    const int ii = ewp ? rx(i) : (i == 1 ? 2 : (i == Li - 1 ? Li - 2 : i));
     return hu.lap_x(j, ii);
   }
   __device__ T uee(int j, int i) const {
@@ -78,8 +84,11 @@ struct Level {
     return u.lap_y(jj, i);
   }
   __device__ T vxx(int j, int i) const {
-    const int ii = i == 0 ? 1 : (i == Li - 1 ? Li - 2 : i);
+    const int ii = ewp ? rx(i) : (i == 0 ? 1 : (i == Li - 1 ? Li - 2 : i));
     return v.lap_x(j, ii);
+  }
+  __device__ T Hvxx(int j, int i) const {
+    return hv.lap_x(j, rx(wrap(i, Li)));
   }
   __device__ T vee(int j, int i) const {
     const int jj = j == 1 ? 2 : (j == Mj - 1 ? Mj - 2 : j);
@@ -92,7 +101,7 @@ struct Level {
 
   __device__ T UFx(int j, int i) const {
     j = wrap(j, Mj);
-    i = wrap(i, Li);
+    i = rx(wrap(i, Li));
     const int ip = wrap(i + 1, Li);
     return up3(u(j, i) + u(j, ip), uxx(j, i), uxx(j, ip),
                hu(j, i) + hu(j, ip), Huxx(j, i) + Huxx(j, ip));
@@ -104,7 +113,7 @@ struct Level {
     const T cff2 = hv(j, i) + hv(j, i - 1);
     const T curv = cff2 > T(0) ? uee(jm, i) : uee(j, i);
     return T(0.25) * (u(j, i) + u(jm, i) + T(GADV) * curv) *
-           (cff2 + T(GADV * 0.5) * (hv.lap_x(j, i) + hv.lap_x(j, i - 1)));
+           (cff2 + T(GADV * 0.5) * (Hvxx(j, i) + Hvxx(j, i - 1)));
   }
   __device__ T VFx(int j, int i) const {
     j = wrap(j, Mj);
@@ -159,16 +168,21 @@ __global__ void rhs3d_kernel(Args<T> a) {
   const F<T> u{a.u + lev, Mj, Li}, v{a.v + lev, Mj, Li};
   const F<T> hz{a.Hz + lev, Mj, Li};
   const F<T> fomn{a.fomn, Mj, Li};
+  const bool ewp = a.ewp != 0;
+  // lane of a ringed x-array (core/rhs3d.py _ring_x)
+  auto rx = [&](int ii) { return roms::ring_x(wrap(ii, Li), Li, ewp); };
   T ru = a.ru[idx];
   T rv = a.rv[idx];
 
   if (a.uv_cor) {
     // Coriolis (rhs3d.F:502-527)
     auto UFx = [&](int jj, int ii) {
+      ii = rx(ii);
       return T(0.5) * hz(jj, ii) * fomn(jj, ii) *
              (v(jj, ii) + v(jj + 1, ii));
     };
     auto VFe = [&](int jj, int ii) {
+      ii = rx(ii);
       return T(0.5) * hz(jj, ii) * fomn(jj, ii) *
              (u(jj, ii) + u(jj, ii + 1));
     };
@@ -179,6 +193,7 @@ __global__ void rhs3d_kernel(Args<T> a) {
     // curvilinear metric terms (rhs3d.F:577-660)
     const F<T> dndx{a.dndx, Mj, Li}, dmde{a.dmde, Mj, Li};
     auto terms = [&](int jj, int ii, T& UF, T& VF) {
+      ii = rx(ii);
       const T c1 = T(0.5) * (v(jj, ii) + v(jj + 1, ii));
       const T c2 = T(0.5) * (u(jj, ii) + u(jj, ii + 1));
       const T cff = hz(jj, ii) * (c1 * dndx(jj, ii) - c2 * dmde(jj, ii));
@@ -195,7 +210,7 @@ __global__ void rhs3d_kernel(Args<T> a) {
   if (a.uv_adv) {
     // UP3 horizontal advection (rhs3d.F:668-1010)
     const Level<T> L{u, v, F<T>{a.Huon + lev, Mj, Li},
-                     F<T>{a.Hvom + lev, Mj, Li}, Mj, Li};
+                     F<T>{a.Hvom + lev, Mj, Li}, Mj, Li, ewp};
     const T hu = -(L.UFx(j, i) - L.UFx(j, i - 1)) -
                  (L.UFe(j + 1, i) - L.UFe(j, i));
     const T hv = -(L.VFx(j, i + 1) - L.VFx(j, i)) -
@@ -204,15 +219,20 @@ __global__ void rhs3d_kernel(Args<T> a) {
     rv = rv + hv;
 
     // C4_SW vertical advection with 4th-order W averages
-    // (rhs3d.F:1133-1168)
+    // (rhs3d.F:1133-1168); on a periodic grid W is ringed and the
+    // reach-2 arm Wm = periodic_x(im1(W)) is ringed again
     const T c1 = T(9.0 / 16.0), c2 = T(1.0 / 16.0);
     auto Wu = [&](int kk) {
       const F<T> w{a.W + static_cast<size_t>(kk) * P, Mj, Li};
-      return c1 * (w(j, i) + w(j, i - 1)) - c2 * (w(j, i + 1) + w(j, i - 2));
+      auto wp = [&](int ii) { return w(j, rx(ii)); };
+      auto wm = [&](int ii) { return wp(rx(ii) - 1); };
+      return c1 * (wp(i) + wm(i)) - c2 * (wp(i + 1) + wm(i - 1));
     };
     auto Wv = [&](int kk) {
       const F<T> w{a.W + static_cast<size_t>(kk) * P, Mj, Li};
-      return c1 * (w(j, i) + w(j - 1, i)) - c2 * (w(j + 1, i) + w(j - 2, i));
+      const int ii = rx(i);
+      return c1 * (w(j, ii) + w(j - 1, ii)) -
+             c2 * (w(j + 1, ii) + w(j - 2, ii));
     };
     const size_t col = static_cast<size_t>(j) * Li + i;
     const T* uc = a.u + col;
@@ -233,14 +253,15 @@ int launch(const void* u, const void* v, const void* Hz, const void* Huon,
            const void* Hvom, const void* W, const void* ru, const void* rv,
            const void* fomn, const void* dndx, const void* dmde, void* out_u,
            void* out_v, int N, int Mj, int Li, int uv_cor, int curv,
-           int uv_adv, void* stream) {
+           int uv_adv, int ewp, void* stream) {
   Args<T> a{static_cast<const T*>(u),    static_cast<const T*>(v),
             static_cast<const T*>(Hz),   static_cast<const T*>(Huon),
             static_cast<const T*>(Hvom), static_cast<const T*>(W),
             static_cast<const T*>(ru),   static_cast<const T*>(rv),
             static_cast<const T*>(fomn), static_cast<const T*>(dndx),
             static_cast<const T*>(dmde), static_cast<T*>(out_u),
-            static_cast<T*>(out_v),      N, Mj, Li, uv_cor, curv, uv_adv};
+            static_cast<T*>(out_v),      N, Mj, Li, uv_cor, curv, uv_adv,
+            ewp};
   const long long total = static_cast<long long>(N) * Mj * Li;
   rhs3d_kernel<T><<<roms::blocks_for(total), roms::kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(a);
@@ -255,9 +276,9 @@ int launch(const void* u, const void* v, const void* Hz, const void* Huon,
                       const void* ru, const void* rv, const void* fomn,     \
                       const void* dndx, const void* dmde, void* out_u,      \
                       void* out_v, int N, int Mj, int Li, int uv_cor,       \
-                      int curv, int uv_adv, void* stream) {                 \
+                      int curv, int uv_adv, int ewp, void* stream) {        \
     return launch<T>(u, v, Hz, Huon, Hvom, W, ru, rv, fomn, dndx, dmde,     \
-                     out_u, out_v, N, Mj, Li, uv_cor, curv, uv_adv,         \
+                     out_u, out_v, N, Mj, Li, uv_cor, curv, uv_adv, ewp,    \
                      stream);                                               \
   }
 

@@ -7,8 +7,9 @@
 // Replaces roms_tpu/ops/pallas_tadv.py:294 predictor_pallas and :286
 // corrector_pallas (both through _call l.195, pallas_call l.268); plain
 // versions ops/tadv.py.  Output rows j = 0 and Mj-1 are zeroed, as in the
-// Pallas kernel: dead data that bc_rho overwrites.  Closed EW walls only
-// (the EW-periodic ring refresh comes with the UPWELLING slice).
+// Pallas kernel: dead data that bc_rho overwrites.  Closed or EW-periodic
+// lanes (the periodic UP3 curvature takes st.periodic_x's lane map instead
+// of the wall zeros); NS-periodic grids are refused by the wrapper.
 //
 // Bound on the H100: bytes.  Each output point needs q, aux (Hz in the
 // predictor), Huon, Hvom, W once: ~6-7 words read and 1 written, against
@@ -40,6 +41,7 @@ struct Args {
   const T* vmask;
   T* out;
   int NT, N, Mj, Li;
+  int ewp;         // EW-periodic lanes
   T s0, s1, s2;    // predictor: cff, cff1, cff2; corrector: dt
 };
 
@@ -51,6 +53,7 @@ struct Plane {
   const T* um;
   const T* vm;
   int Mj, Li;
+  bool ewp;
 
   __device__ T Q(int j, int i) const {
     return q[wrap(j, Mj) * Li + wrap(i, Li)];
@@ -62,9 +65,13 @@ struct Plane {
   __device__ T dqe(int j, int i) const {
     return (Q(j, i) - Q(j - 1, i)) * vm[j * Li + i];
   }
-  // UP3 curvatures with the closed-wall zero ring (advection.hadv_flux)
+  // UP3 curvatures (advection.hadv_flux): zero ring at closed walls,
+  // st.periodic_x lanes on an EW-periodic grid
   __device__ T curvx(int j, int i) const {
-    if (i == 0 || i == Li - 1) return T(0);
+    if (ewp)
+      i = roms::ring_x(i, Li, true);
+    else if (i == 0 || i == Li - 1)
+      return T(0);
     return dqx(j, i + 1) - dqx(j, i);
   }
   __device__ T curve(int j, int i) const {
@@ -123,7 +130,7 @@ __global__ void tadv_kernel(Args<T> a) {
   const size_t col = static_cast<size_t>(j) * Li + i;
   const T* qcol = a.q + static_cast<size_t>(itrc) * N * P + col;
   Plane<T> pl{qcol - col + k * P, a.Huon + k * P, a.Hvom + k * P, a.umask,
-              a.vmask, Mj, Li};
+              a.vmask, Mj, Li, a.ewp != 0};
   const T hdiv = (pl.FX(j, i + 1) - pl.FX(j, i)) +
                  (pl.FE(j + 1, i) - pl.FE(j, i));
   const T* Wcol = a.W + col;
@@ -154,13 +161,14 @@ template <typename T>
 int launch(int predictor, const void* q, const void* aux, const void* Huon,
            const void* Hvom, const void* Hz, const void* W, const void* pmn,
            const void* umask, const void* vmask, void* out, int NT, int N,
-           int Mj, int Li, double s0, double s1, double s2, void* stream) {
+           int Mj, int Li, int ewp, double s0, double s1, double s2,
+           void* stream) {
   Args<T> a{static_cast<const T*>(q),     static_cast<const T*>(aux),
             static_cast<const T*>(Huon),  static_cast<const T*>(Hvom),
             static_cast<const T*>(Hz),    static_cast<const T*>(W),
             static_cast<const T*>(pmn),   static_cast<const T*>(umask),
             static_cast<const T*>(vmask), static_cast<T*>(out),
-            NT, N, Mj, Li, T(s0), T(s1), T(s2)};
+            NT, N, Mj, Li, ewp, T(s0), T(s1), T(s2)};
   const long long total = static_cast<long long>(NT) * N * Mj * Li;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (predictor)
@@ -177,10 +185,10 @@ int launch(int predictor, const void* q, const void* aux, const void* Huon,
                       const void* Huon, const void* Hvom, const void* Hz,   \
                       const void* W, const void* pmn, const void* umask,    \
                       const void* vmask, void* out, int NT, int N, int Mj,  \
-                      int Li, double s0, double s1, double s2,              \
+                      int Li, int ewp, double s0, double s1, double s2,     \
                       void* stream) {                                       \
     return launch<T>(predictor, q, aux, Huon, Hvom, Hz, W, pmn, umask,      \
-                     vmask, out, NT, N, Mj, Li, s0, s1, s2, stream);        \
+                     vmask, out, NT, N, Mj, Li, ewp, s0, s1, s2, stream);   \
   }
 
 ROMS_TADV_ENTRY(roms_tadv_f32, float)

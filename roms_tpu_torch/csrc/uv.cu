@@ -12,8 +12,11 @@
 // Every point, ring rows included, carries the reference's values: the
 // finish outputs persist into the next step.  The u-point averages take
 // the (j, i-1) neighbour and the v-point averages (Hz_v, AKv, DC0v) the
-// (j-1, i) neighbour, both wrapping like jnp.roll.
-// Closed EW walls only (EW-periodic lane refresh: UPWELLING slice).
+// (j-1, i) neighbour, both wrapping like jnp.roll.  On an EW-periodic grid
+// uv_finish refreshes the Huon/Hvom lanes itself (ops/uv.py ends with
+// st.periodic_x): the threads of lanes Li-2 and 1 also write their flux
+// columns into lanes 0 and Li-1, whose own threads leave them alone.
+// NS-periodic grids are refused by the wrapper.
 //
 // Bound on the H100: bytes.  uv_solve reads 5 N-fields, 1 (N+1)-field
 // and 10 planes and writes 2 N-fields; uv_finish reads 5 N-fields and 8
@@ -96,16 +99,17 @@ struct FinishArgs {
   const T *un, *vn, *Hz, *Huon_old, *Hvom_old;
   const T *umask, *vmask, *on_u, *om_v, *DU1, *DV1, *DU2, *DV2;
   T *out_u, *out_v, *ubar, *vbar, *Huon, *Hvom;
-  int N, Mj, Li;
+  int N, Mj, Li, ewp;
 };
 
 // re-correction, barotropic velocity and time-centred flux of one
-// column of one component, its face neighbour at cn
+// column of one component, its face neighbour at cn; the flux column goes
+// to lane c unless `own` is false, and to lane c2 as well when c2 >= 0
 template <typename T>
 __device__ void finish_column(const FinishArgs<T>& a, int c, int cn,
                               const T* qn, const T* flux_old, T scale,
                               T avg1, T avg2, T mask, T* out_q, T* out_bar,
-                              T* out_flux) {
+                              T* out_flux, bool own, int c2) {
   const int N = a.N;
   const int P = a.Mj * a.Li;
   T hz[kNmax], q[kNmax];
@@ -126,8 +130,11 @@ __device__ void finish_column(const FinishArgs<T>& a, int c, int cn,
     sum = sum + q[k];
   }
   const T err = (sum - avg2) / (D * scale);
-  for (int k = 0; k < N; ++k)
-    out_flux[static_cast<size_t>(k) * P + c] = q[k] - hz[k] * scale * err;
+  for (int k = 0; k < N; ++k) {
+    const T f = q[k] - hz[k] * scale * err;
+    if (own) out_flux[static_cast<size_t>(k) * P + c] = f;
+    if (c2 >= 0) out_flux[static_cast<size_t>(k) * P + c2] = f;
+  }
 }
 
 template <typename T>
@@ -138,10 +145,14 @@ __global__ void uv_finish_kernel(FinishArgs<T> a) {
   const int i = c % Li, j = c / Li;
   const int cw = c - i + wrap(i - 1, Li);      // (j, i-1)
   const int cs = wrap(j - 1, a.Mj) * Li + i;   // (j-1, i)
+  // periodic lanes: lane 0 <- lane Li-2, lane Li-1 <- lane 1
+  const bool own = !a.ewp || (i != 0 && i != Li - 1);
+  const int c2 = !a.ewp ? -1 : (i == Li - 2 ? c - i : (i == 1 ? c - i + Li - 1
+                                                               : -1));
   finish_column(a, c, cw, a.un, a.Huon_old, a.on_u[c], a.DU1[c], a.DU2[c],
-                a.umask[c], a.out_u, a.ubar, a.Huon);
+                a.umask[c], a.out_u, a.ubar, a.Huon, own, c2);
   finish_column(a, c, cs, a.vn, a.Hvom_old, a.om_v[c], a.DV1[c], a.DV2[c],
-                a.vmask[c], a.out_v, a.vbar, a.Hvom);
+                a.vmask[c], a.out_v, a.vbar, a.Hvom, own, c2);
 }
 
 }  // namespace
@@ -172,14 +183,14 @@ __global__ void uv_finish_kernel(FinishArgs<T> a) {
                         const void* DV1, const void* DU2, const void* DV2,  \
                         void* out_u, void* out_v, void* ubar, void* vbar,   \
                         void* Huon, void* Hvom, int N, int Mj, int Li,      \
-                        void* stream) {                                     \
+                        int ewp, void* stream) {                            \
     FinishArgs<T> a{                                                         \
         (const T*)un,    (const T*)vn,    (const T*)Hz,                     \
         (const T*)Huon_old, (const T*)Hvom_old, (const T*)umask,            \
         (const T*)vmask, (const T*)on_u,  (const T*)om_v, (const T*)DU1,    \
         (const T*)DV1,   (const T*)DU2,   (const T*)DV2,  (T*)out_u,        \
         (T*)out_v,       (T*)ubar,        (T*)vbar,       (T*)Huon,         \
-        (T*)Hvom,        N, Mj, Li};                                         \
+        (T*)Hvom,        N, Mj, Li, ewp};                                    \
     uv_finish_kernel<T><<<roms::blocks_for((long long)Mj * Li),             \
                           roms::kThreads, 0, (cudaStream_t)stream>>>(a);    \
     return (int)cudaGetLastError();                                          \

@@ -30,10 +30,12 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# launch counts of the seven kernel entry points
+# launch counts of the twelve kernel entry points (one per wrapper
+# call; fast_loop_res launches ops/step2d.PHASES CUDA kernels a substep)
 launches = {name: 0 for name in (
     "rho_eos", "tadv_predictor", "tadv_corrector", "rhs3d_momentum",
-    "uv_solve", "uv_finish", "spline_vdiff")}
+    "uv_solve", "uv_finish", "spline_vdiff", "flux_omega", "omega",
+    "prsgrd32", "uv3dmix2_s", "fast_loop_res")}
 
 _lib = None
 build_seconds = None
@@ -156,12 +158,6 @@ def check(rc: int, name: str):
 
 # deepest column the column kernels take (csrc/spline_dq.cuh kNmax)
 KNMAX = 64
-
-
-def require_closed_walls(cfg, name: str):
-    if cfg.bc.ew_periodic or cfg.bc.ns_periodic:
-        raise NotImplementedError(
-            f"{name} kernel on periodic grids: UPWELLING slice (slice 2)")
 
 
 def require_depth(name: str, N: int):

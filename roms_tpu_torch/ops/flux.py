@@ -1,0 +1,82 @@
+"""Kernel 6: horizontal mass fluxes fused with the vertical mass flux
+(csrc/flux.cu), entry points `flux_omega` and `omega`.
+
+Replaces roms_tpu/ops/pallas_flux.py `flux_omega_pallas` and
+`omega_pallas`.  The kernel and its plain version agree at every point:
+Huon/Hvom ring rows hold set_massflux's roll wrap, where the Pallas
+kernel leaves other dead values.  `covers` is the class of
+`use_pallas_flux` (pallas_flux.py:211): EW-periodic, not NS-periodic,
+closed or gradient N/S zeta walls, no OMEGA_IMPLICIT.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import CLOSED, GRADIENT
+from . import _lib, stencil as st
+
+
+def covers(cfg) -> bool:
+    z = cfg.bc.zeta
+    return (cfg.bc.ew_periodic and not cfg.bc.ns_periodic
+            and z.south in (CLOSED, GRADIENT)
+            and z.north in (CLOSED, GRADIENT)
+            and not cfg.omega_implicit)
+
+
+def flux_omega_plain(cfg, grid, u, v, Hz, z_w):
+    """(Huon, Hvom, W): set_massflux, the EW ring refresh, omega."""
+    from ..core.omega import omega as omega_fn
+    from ..grid.depth import set_massflux
+    Huon, Hvom = set_massflux(grid, u, v, Hz)
+    Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
+    return Huon, Hvom, omega_fn(cfg, grid, Huon, Hvom, z_w)
+
+
+def omega_plain(cfg, grid, Huon, Hvom, z_w):
+    from ..core.omega import omega as omega_fn
+    return omega_fn(cfg, grid, Huon, Hvom, z_w)
+
+
+def flux_omega(cfg, grid, u, v, Hz, z_w):
+    """Wrapper: plain version on CPU tensors, kernel on CUDA tensors."""
+    if u.device.type == "cpu":
+        return flux_omega_plain(cfg, grid, u, v, Hz, z_w)
+    (u, v, Hz, on_u, om_v, z_w), sfx, stream = _lib.prepare(
+        "flux_omega", [u, v, Hz, grid.on_u, grid.om_v, z_w])
+    Huon, Hvom = torch.empty_like(u), torch.empty_like(v)
+    W = _launch("flux_omega", cfg, sfx, stream, u, v, Hz, on_u, om_v, z_w,
+                Huon, Hvom)
+    return Huon, Hvom, W
+
+
+def omega(cfg, grid, Huon, Hvom, z_w):
+    """Wrapper: plain version on CPU tensors, kernel on CUDA tensors."""
+    if Huon.device.type == "cpu":
+        return omega_plain(cfg, grid, Huon, Hvom, z_w)
+    (Huon, Hvom, z_w), sfx, stream = _lib.prepare("omega", [Huon, Hvom, z_w])
+    return _launch("omega", cfg, sfx, stream, None, None, None, None, None,
+                   z_w, Huon, Hvom)
+
+
+def _launch(name, cfg, sfx, stream, u, v, Hz, on_u, om_v, z_w, Huon, Hvom):
+    if not covers(cfg):
+        raise NotImplementedError(
+            f"{name} kernel covers EW-periodic grids with closed or "
+            "gradient N/S zeta walls, without OMEGA_IMPLICIT")
+    N, Mj, Li = Huon.shape
+    if z_w.shape != (N + 1, Mj, Li) or Hvom.shape != Huon.shape or any(
+            x is not None and x.shape[-2:] != (Mj, Li)
+            for x in (u, v, Hz, on_u, om_v)) or Li < 4 or Mj < 4:
+        raise ValueError(f"{name}: inconsistent shapes")
+    W = torch.empty_like(z_w)
+    P, I = _lib.P, _lib.I
+    fn = _lib.func(f"roms_flux_omega_{sfx}", [I] + [P] * 9 + [I] * 3 + [P])
+    rc = fn(int(name == "flux_omega"),
+            *[P(None) if x is None else _lib.ptr(x)
+              for x in (u, v, Hz, on_u, om_v, z_w, Huon, Hvom, W)],
+            N, Mj, Li, P(stream))
+    _lib.launches[name] += 1
+    _lib.check(rc, name)
+    return W

@@ -49,6 +49,11 @@ def rho_eos_plain(cfg, t, z_r, Hz, z_w):
     return rho, pden, rhoA, rhoS, bvf
 
 
+def covers(cfg) -> bool:
+    """Every configuration (use_pallas_rho has no config class)."""
+    return True
+
+
 def rho_eos(cfg, t, z_r, Hz, z_w):
     """Wrapper: plain version on CPU tensors, kernel on CUDA tensors."""
     if t.device.type == "cpu":

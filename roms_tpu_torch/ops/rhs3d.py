@@ -2,7 +2,9 @@
 
 Replaces roms_tpu/ops/pallas_rhs3d.py `rhs3d_momentum_pallas`.  Output
 ring rows j = 0 and Mj-1 are zero in both the kernel and its plain
-version; bc_u/bc_v overwrite them downstream.
+version; bc_u/bc_v overwrite them downstream.  Closed or EW-periodic
+lanes; `covers` is the class of roms_tpu/core/rhs3d.py
+`_use_pallas_rhs3d`.
 """
 
 from __future__ import annotations
@@ -10,6 +12,11 @@ from __future__ import annotations
 import torch
 
 from . import _lib
+
+
+def covers(cfg) -> bool:
+    """Non-NS-periodic grids with UP3 horizontal momentum advection."""
+    return not cfg.bc.ns_periodic and cfg.uv_hadv == "up3"
 
 
 def rhs3d_momentum_plain(cfg, grid, u, v, Hz, Huon, Hvom, W, ru, rv):
@@ -27,9 +34,9 @@ def rhs3d_momentum(cfg, grid, u, v, Hz, Huon, Hvom, W, ru, rv):
     if u.device.type == "cpu":
         return rhs3d_momentum_plain(cfg, grid, u, v, Hz, Huon, Hvom, W,
                                     ru, rv)
-    _lib.require_closed_walls(cfg, "rhs3d_momentum")
-    if cfg.uv_adv and (cfg.uv_hadv != "up3" or cfg.uv_vadv != "c4_sw"):
-        raise NotImplementedError("rhs3d kernel covers UP3/C4_SW only")
+    if not covers(cfg) or (cfg.uv_adv and cfg.uv_vadv != "c4_sw"):
+        raise NotImplementedError(
+            "rhs3d kernel covers UP3/C4_SW on non-NS-periodic grids")
     (u, v, Hz, Huon, Hvom, W, ru, rv, fomn, dndx, dmde), sfx, stream = \
         _lib.prepare("rhs3d_momentum", [u, v, Hz, Huon, Hvom, W, ru, rv,
                                         grid.fomn, grid.dndx, grid.dmde])
@@ -40,11 +47,11 @@ def rhs3d_momentum(cfg, grid, u, v, Hz, Huon, Hvom, W, ru, rv):
     out_u = torch.empty_like(u)
     out_v = torch.empty_like(v)
     P, I = _lib.P, _lib.I
-    fn = _lib.func(f"roms_rhs3d_{sfx}", [P] * 13 + [I] * 6 + [P])
+    fn = _lib.func(f"roms_rhs3d_{sfx}", [P] * 13 + [I] * 7 + [P])
     rc = fn(*[_lib.ptr(x) for x in (u, v, Hz, Huon, Hvom, W, ru, rv, fomn,
                                     dndx, dmde, out_u, out_v)],
             N, Mj, Li, int(bool(cfg.uv_cor)), int(bool(cfg.curvgrid)),
-            int(bool(cfg.uv_adv)), P(stream))
+            int(bool(cfg.uv_adv)), int(cfg.bc.ew_periodic), P(stream))
     _lib.launches["rhs3d_momentum"] += 1
     _lib.check(rc, "rhs3d_momentum")
     return out_u, out_v

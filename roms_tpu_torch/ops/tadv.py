@@ -4,7 +4,8 @@
 Replaces roms_tpu/ops/pallas_tadv.py `predictor_pallas` and
 `corrector_pallas`.  Output rows j = 0 and Mj-1 are zero in both the
 kernel and its plain version (the reference's jnp path leaves roll-wrap
-values there; bc_rho overwrites them either way).
+values there; bc_rho overwrites them either way).  Closed or EW-periodic
+lanes; `covers` is the class of `use_pallas_tadv` (pallas_tadv.py:300).
 """
 
 from __future__ import annotations
@@ -13,6 +14,13 @@ import torch
 
 from ..config import CENTERED4, UPSTREAM3
 from . import _lib, stencil as st
+
+
+def covers(cfg) -> bool:
+    """Non-NS-periodic grids with UP3/C4 advection of every tracer."""
+    return not cfg.bc.ns_periodic and all(
+        cfg.tracer_hadv(itrc) == UPSTREAM3
+        and cfg.tracer_vadv(itrc) == CENTERED4 for itrc in range(cfg.NT))
 
 
 def _zero_ring_rows(x):
@@ -75,12 +83,9 @@ def corrector(cfg, grid, t_half, t_part, Huon, Hvom, W, Hz):
 
 
 def _launch(name, cfg, grid, q, aux, Huon, Hvom, W, Hz, scalars):
-    _lib.require_closed_walls(cfg, name)
-    for itrc in range(cfg.NT):
-        if cfg.tracer_hadv(itrc) != UPSTREAM3 or \
-                cfg.tracer_vadv(itrc) != CENTERED4:
-            raise NotImplementedError(
-                f"{name} kernel covers UP3/C4 tracers only")
+    if not covers(cfg):
+        raise NotImplementedError(
+            f"{name} kernel covers UP3/C4 tracers on non-NS-periodic grids")
     pmn = grid.pm * grid.pn
     (q, aux, Huon, Hvom, W, Hz, pmn, umask, vmask), sfx, stream = \
         _lib.prepare(name, [q, aux, Huon, Hvom, W, Hz, pmn, grid.umask,
@@ -91,12 +96,13 @@ def _launch(name, cfg, grid, q, aux, Huon, Hvom, W, Hz, scalars):
         raise ValueError(f"{name}: inconsistent shapes")
     out = torch.empty_like(q)
     P, I, D = _lib.P, _lib.I, _lib.D
-    fn = _lib.func(f"roms_tadv_{sfx}", [I] + [P] * 10 + [I] * 4 + [D] * 3
+    fn = _lib.func(f"roms_tadv_{sfx}", [I] + [P] * 10 + [I] * 5 + [D] * 3
                    + [P])
     rc = fn(int(name == "tadv_predictor"),
             *[_lib.ptr(x) for x in (q, aux, Huon, Hvom, Hz, W, pmn, umask,
                                     vmask, out)],
-            NT, N, Mj, Li, *[float(s) for s in scalars], P(stream))
+            NT, N, Mj, Li, int(cfg.bc.ew_periodic),
+            *[float(s) for s in scalars], P(stream))
     _lib.launches[name] += 1
     _lib.check(rc, name)
     return out

@@ -3,7 +3,9 @@
 Replaces roms_tpu/ops/pallas_uv.py `uv_solve_pallas` and
 `uv_finish_pallas`.  Every point, ring rows included, matches the
 reference: the kernel takes the i-1 and j-1 neighbours of the face
-averages with the same wrap as `st.im1`/`st.jm1` (jnp.roll).
+averages with the same wrap as `st.im1`/`st.jm1` (jnp.roll), and on an
+EW-periodic grid uv_finish refreshes the Huon/Hvom lanes itself.
+`covers` is the class of `use_pallas_uv` (pallas_uv.py:255).
 """
 
 from __future__ import annotations
@@ -12,6 +14,19 @@ import torch
 
 from . import _lib, stencil as st
 from .tridiag import spline_flux_solve
+
+
+def covers(cfg) -> bool:
+    """Spline viscosity on non-NS-periodic grids, no OMEGA_IMPLICIT."""
+    return (not cfg.bc.ns_periodic and cfg.mixing.splines_vvisc
+            and not cfg.omega_implicit)
+
+
+def _require(cfg, name):
+    if not covers(cfg):
+        raise NotImplementedError(
+            f"{name} kernel covers spline viscosity on non-NS-periodic "
+            "grids without OMEGA_IMPLICIT")
 
 
 def _correct(q, Hzq, scale, avg1, mask):
@@ -73,7 +88,7 @@ def uv_solve(cfg, grid, u_part, v_part, ru, rv, Hz, Akv, cffab,
     if ru.device.type == "cpu":
         return uv_solve_plain(cfg, grid, u_part, v_part, ru, rv, Hz, Akv,
                               cffab, DU_avg1, DV_avg1)
-    _lib.require_closed_walls(cfg, "uv_solve")
+    _require(cfg, "uv_solve")
     tensors, sfx, stream = _lib.prepare(
         "uv_solve", [u_part, v_part, ru, rv, Hz, Akv, grid.pm, grid.pn,
                      grid.umask, grid.vmask, grid.on_u, grid.om_v, DU_avg1,
@@ -100,21 +115,23 @@ def uv_finish(cfg, grid, un, vn, Hz, Huon_old, Hvom_old,
     if un.device.type == "cpu":
         return uv_finish_plain(cfg, grid, un, vn, Hz, Huon_old, Hvom_old,
                                DU_avg1, DV_avg1, DU_avg2, DV_avg2)
-    _lib.require_closed_walls(cfg, "uv_finish")
+    _require(cfg, "uv_finish")
     tensors, sfx, stream = _lib.prepare(
         "uv_finish", [un, vn, Hz, Huon_old, Hvom_old, grid.umask,
                       grid.vmask, grid.on_u, grid.om_v, DU_avg1, DV_avg1,
                       DU_avg2, DV_avg2])
     N, Mj, Li = un.shape
     _lib.require_depth("uv_finish", N)
-    if any(x.shape != un.shape for x in (vn, Hz, Huon_old, Hvom_old)):
+    if any(x.shape != un.shape for x in (vn, Hz, Huon_old, Hvom_old)) or \
+            (cfg.bc.ew_periodic and Li < 4):
         raise ValueError("uv_finish: inconsistent shapes")
     outs = [torch.empty_like(un), torch.empty_like(vn),
             torch.empty_like(DU_avg1), torch.empty_like(DV_avg1),
             torch.empty_like(un), torch.empty_like(vn)]
     P, I = _lib.P, _lib.I
-    fn = _lib.func(f"roms_uv_finish_{sfx}", [P] * 19 + [I] * 3 + [P])
-    rc = fn(*[_lib.ptr(x) for x in tensors + outs], N, Mj, Li, P(stream))
+    fn = _lib.func(f"roms_uv_finish_{sfx}", [P] * 19 + [I] * 4 + [P])
+    rc = fn(*[_lib.ptr(x) for x in tensors + outs], N, Mj, Li,
+            int(cfg.bc.ew_periodic), P(stream))
     _lib.launches["uv_finish"] += 1
     _lib.check(rc, "uv_finish")
     return tuple(outs)

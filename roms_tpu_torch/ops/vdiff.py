@@ -13,6 +13,11 @@ from . import _lib
 from .tridiag import spline_flux_solve
 
 
+def covers(cfg) -> bool:
+    """Spline vertical diffusion (use_pallas_vdiff, pallas_vdiff.py:78)."""
+    return bool(cfg.mixing.splines_vdiff)
+
+
 def spline_vdiff_plain(cfg, pre, Hz, Akt):
     """pre: (NT, N, Mj, Li) Hz-weighted tracers; Akt (NAT, N+1, Mj, Li).
     Returns (NT, N, Mj, Li) in tracer units (q + dq)."""

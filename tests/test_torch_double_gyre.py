@@ -71,6 +71,9 @@ def test_port_imports_neither_jax_nor_roms_tpu():
         "import roms_tpu_torch.ops._lib, roms_tpu_torch.ops.rho\n"
         "import roms_tpu_torch.ops.tadv, roms_tpu_torch.ops.rhs3d\n"
         "import roms_tpu_torch.ops.uv, roms_tpu_torch.ops.vdiff\n"
+        "import roms_tpu_torch.ops.flux, roms_tpu_torch.ops.prsgrd\n"
+        "import roms_tpu_torch.ops.uvmix, roms_tpu_torch.ops.step2d\n"
+        "import roms_tpu_torch.functionals.upwelling\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'roms_tpu' or m.startswith('roms_tpu.')]\n"

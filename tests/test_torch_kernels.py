@@ -9,8 +9,9 @@ the interior rows for tadv/rhs3d (their ring rows are dead data that
 the kernels zero), over whole arrays for rho/uv/vdiff.
 
 The CUDA kernels themselves need a card: tests/test_torch_cuda.py.
-Also here: the gate test proving this slice covers every Pallas kernel
-roms_tpu's float32 DOUBLE_GYRE step runs on one TPU.
+Also here: the gate tests proving the port covers every Pallas kernel
+roms_tpu's float32 step runs on one TPU, and that each kernel module's
+`covers(cfg)` fires exactly where roms_tpu's gate does.
 """
 
 import os
@@ -225,3 +226,58 @@ def test_slice_covers_the_tpu_kernels_of_double_gyre(monkeypatch):
     up = upwelling.make_config(dtype="float32")
     assert _fired(up) == {"flux", "rho", "tadv", "prsgrd", "rhs3d",
                           "uvmix", "fast_loop_pallas_res", "uv", "vdiff"}
+
+
+def _port_fired(cfg):
+    """The port's kernel classes (each ops module's `covers`), as the
+    set of roms_tpu kernel names they stand for."""
+    from roms_tpu_torch import convert
+    from roms_tpu_torch.ops import (flux, prsgrd, rho, rhs3d, step2d, tadv,
+                                    uv, uvmix, vdiff)
+    from torch_port_util import cfg_dict
+    tcfg = convert.config_from_dict(cfg_dict(cfg))
+    gates = {"flux": flux, "rho": rho, "tadv": tadv, "prsgrd": prsgrd,
+             "rhs3d": rhs3d, "uvmix": uvmix, "fast_loop_pallas_res": step2d,
+             "uv": uv, "vdiff": vdiff}
+    return {k for k, mod in gates.items() if mod.covers(tcfg)}
+
+
+def _gate_configs():
+    from roms_tpu.config import (CLAMPED, LBC, PERIODIC, BoundaryConfig)
+    from roms_tpu.functionals import upwelling
+    up = upwelling.make_config(dtype="float32")
+    return {
+        "double_gyre": ia.double_gyre_config(Lm=512, Mm=1024, N=30,
+                                             dt=240.0, dtype="float32"),
+        "upwelling": up,
+        "upwelling_full_width": upwelling.make_config(
+            Lm=512, Mm=1024, N=16, dtype="float32"),
+        "ns_periodic": up.replace(bc=BoundaryConfig.uniform(
+            LBC.ns_periodic())),
+        "open_ns_zeta": up.replace(bc=up.bc.__class__(
+            **{**{f: getattr(up.bc, f) for f in ("ubar", "vbar", "u", "v",
+                                                  "t", "tke", "volcons")},
+               "zeta": LBC(west=PERIODIC, east=PERIODIC, south=CLAMPED,
+                           north=CLAMPED)})),
+        "omega_implicit": up.replace(omega_implicit=True),
+        "visc2_zero": up.replace(mixing=up.mixing.__class__(
+            **{**up.mixing.__dict__, "visc2": 0.0})),
+        "wetdry": up.replace(wetdry=True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_gate_configs()))
+def test_port_gates_match_roms_tpu(monkeypatch, name):
+    """On every configuration the port's kernel classes fire exactly the
+    kernels roms_tpu's float32 step runs on one TPU: the closed basin,
+    the channel at the published and the full width (all nine), and
+    configurations just outside each class."""
+    for var in [v for v in os.environ if v.startswith("ROMS_TPU_")]:
+        monkeypatch.delenv(var)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    cfg = _gate_configs()[name]
+    fired = _fired(cfg)
+    assert _port_fired(cfg) == fired
+    if name.startswith("upwelling"):
+        assert len(fired) == 9
