@@ -12,19 +12,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      version on the card, same inputs, float64 (rel <= 1e-12; the fast
      loop, 2 x 42 substeps, 1e-11) and float32 (rel <= 1e-5), on seeded
      perturbations of the DOUBLE_GYRE state (the seven closed-basin entry
-     points) and of the UPWELLING state (all twelve, EW-periodic lanes),
-     each at a moderate size whose Mj is not a multiple of the block size
-     and at the full width;
+     points), of the UPWELLING state (all twelve, EW-periodic lanes) and
+     of the BENCHMARK3 full-physics state (the fourteen entry points of
+     its path, the channel kernels at N=30 with its spherical metrics,
+     JM95 and 20-substep fast loop among them, plus KPP alone; the
+     rotated tracer mixing also with closed walls; KPP's boundary-layer
+     depths column by column), each at a moderate size whose Mj is not a
+     multiple of the block size and at the full width;
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
-     and UPWELLING Lm=48, Mm=64, N=16 from a zonally varying state;
+     UPWELLING Lm=48, Mm=64, N=16 and BENCHMARK full physics Lm=64,
+     Mm=32, N=16, the last two from a zonally varying state;
   4. full width, float32, 10 steps after a warm-up step, ms/step from
      CUDA events, each entry point's launches in the run and no plain
      version called: DOUBLE_GYRE Lm=512, Mm=1024, N=30 (dt=240 s; finite
-     fields, interior volume conserved) and UPWELLING Lm=512, Mm=1024,
-     N=16 (the published dx = 1 km, dt = 300 s, ndtfast = 30; finite
-     fields, interior volume, zeta x-uniform), then each kernel's time at
-     the UPWELLING shapes next to its plain version and its memory bound.
+     fields, interior volume conserved), UPWELLING Lm=512, Mm=1024, N=16
+     (the published dx = 1 km, dt = 300 s, ndtfast = 30; finite fields,
+     interior volume, zeta x-uniform) and BENCHMARK3 full physics
+     Lm=2048, Mm=256, N=30 (dt = 150 s, ndtfast = 20 as published;
+     finite fields, interior volume, the KPP boundary layer inside the
+     water column), then each kernel's time at its path's full-width
+     shapes next to its plain version and its bound.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -43,6 +51,7 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 TOL_F64 = {"fast_loop_res": 1e-11}
 DEVICE = "cuda"
 FAILURES = []       # kernel-vs-plain excesses, reported at phase end
+CARD = ""           # nvidia-smi's name and power limit
 
 
 def fail(msg):
@@ -67,11 +76,13 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi unavailable: {smi.stderr.strip()}", flush=True)
+    CARD = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else f"nvidia-smi unavailable: {smi.stderr.strip()}"
+    print(CARD, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -90,7 +101,12 @@ def main():
     for app in APPS:
         slice_parity(torch, app)
     counts = {app: full_width(torch, app) for app in APPS}
-    table = kernel_table(torch, "upwelling", counts["upwelling"])
+    # one row per entry point, at the newest path that runs it
+    table = kernel_table(torch, "benchmark", counts["benchmark"])
+    done = {row["name"] for row in table}
+    table += [row for row in kernel_table(torch, "upwelling",
+                                          counts["upwelling"])
+              if row["name"] not in done]
     kernel_table(torch, "double_gyre", counts["double_gyre"])
     files = sorted({os.path.basename(src) for src, _ in SOURCES.values()})
     print(f"kernels: {files} ({len(files)} files, {len(table)} entry "
@@ -131,8 +147,15 @@ SOURCES = {
                    "roms_tpu/ops/pallas_uvmix.py:143"),
     "fast_loop_res": ("roms_tpu_torch/csrc/step2d.cu",
                       "roms_tpu/ops/pallas_step2d.py:804"),
+    "bulk_flux": ("roms_tpu_torch/csrc/bulk.cu",
+                  "roms_tpu/ops/pallas_bulk.py:41"),
+    "kpp": ("roms_tpu_torch/csrc/kpp.cu", "roms_tpu/ops/pallas_kpp.py:289"),
+    "prep": ("roms_tpu_torch/csrc/kpp.cu", "roms_tpu/ops/pallas_prep.py:76"),
+    "rot_div_geo": ("roms_tpu_torch/csrc/hmix.cu",
+                    "roms_tpu/ops/pallas_hmix.py:185"),
 }
 SLICE1 = list(SOURCES)[:7]
+SLICE2 = list(SOURCES)[:12]
 
 # flops per output point (per level for column kernels, per substep for
 # the fast loop), counted by hand from the plain versions' arithmetic,
@@ -141,7 +164,9 @@ FLOPS_PER_POINT = {"rho_eos": 12, "tadv_predictor": 90,
                    "tadv_corrector": 80, "rhs3d_momentum": 220,
                    "uv_solve": 60, "uv_finish": 30, "spline_vdiff": 25,
                    "flux_omega": 15, "omega": 7, "prsgrd32": 130,
-                   "uv3dmix2_s": 60, "fast_loop_res": 470}
+                   "uv3dmix2_s": 60, "fast_loop_res": 470,
+                   "bulk_flux": 700, "kpp": 160, "prep": 230,
+                   "rot_div_geo": 85}
 # (Mj, Li) planes a fast-loop substep after the first reads or writes,
 # each counted once per phase (csrc/step2d.cu: flux 18 + 12, zeta 10 +
 # 11, momentum 37 + 39), for the per-substep traffic line
@@ -152,10 +177,19 @@ APPS = {
                         kernel_sizes=((128, 256, 30), (512, 1024, 30)),
                         parity=(64, 128, 10, 1800.0),
                         full=(512, 1024, 30)),
-    "upwelling": dict(entries=list(SOURCES), dt=300.0,
+    "upwelling": dict(entries=SLICE2, dt=300.0,
                       kernel_sizes=((100, 203, 16), (512, 1024, 16)),
                       parity=(48, 64, 16, 300.0),
                       full=(512, 1024, 16)),
+    # the path runs the channel kernels with kernel 15 in place of rho
+    # and kernels 13 and 16; KPP alone (kernel 14, the same column
+    # without the EOS) is off it, and is checked and timed at its shapes
+    "benchmark": dict(entries=[n for n in SOURCES
+                               if n not in ("rho_eos", "kpp")],
+                      off_path=["kpp"], dt=150.0,
+                      kernel_sizes=((201, 101, 30), (2048, 256, 30)),
+                      parity=(64, 32, 16, 150.0),
+                      full=(2048, 256, 30)),
 }
 
 
@@ -168,6 +202,13 @@ def app_setup(app, Lm, Mm, N, dtype, dt):
         grid = ia.double_gyre_grid(cfg, device=DEVICE)
         return cfg, grid, ia.double_gyre_initial(cfg, grid), dict(
             forcing_fn=ia.double_gyre_forcing_fn(cfg, grid))
+    if app == "benchmark":
+        from roms_tpu_torch.functionals import benchmark as bm
+        cfg = bm.make_config(Lm=Lm, Mm=Mm, N=N, dt=dt, dtype=dtype,
+                             full_physics=True)
+        grid = bm.make_grid(cfg, device=DEVICE)
+        return cfg, grid, bm.make_initial(cfg, grid), dict(
+            forcing_fn=bm.make_bulk_forcing_fn(cfg, grid))
     from roms_tpu_torch.functionals import upwelling as up
     cfg = up.make_config(Lm=Lm, Mm=Mm, N=N, dt=dt, dtype=dtype)
     grid = up.make_grid(cfg, device=DEVICE)
@@ -254,8 +295,33 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
         return args, [u, v, Hz, z_w, grid.on_u, grid.om_v]
     if name == "omega":
         return (cfg, grid, Huon, Hvom, z_w), [Huon, Hvom, z_w]
+    if name == "bulk_flux":
+        return bulk_inputs(torch, cfg, grid, t, z_r, rnd)
+    if name == "rot_div_geo":
+        args = (cfg, grid, t, grid.diff2, Hz, z_r)
+        return args, [t, z_r, Hz, grid.pm, grid.pn, grid.umask, grid.vmask,
+                      grid.on_u, grid.om_v, grid.diff2]
     from roms_tpu_torch.ops import rho as rho_op
-    rho, _, rhoA, rhoS, _ = rho_op.rho_eos_plain(cfg, t, z_r, Hz, z_w)
+    rho, pden, rhoA, rhoS, bvf = rho_op.rho_eos_plain(cfg, t, z_r, Hz, z_w)
+    if name in ("kpp", "prep"):
+        # seeded surface forcing: buoyancy fluxes of both signs (Bfsfc
+        # both ways, the Ekman/Monin-Obukhov cap where it is positive),
+        # friction velocities with some zeros; in KPP mode a third of the
+        # columns statically unstable, where no critical Richardson
+        # number is crossed
+        u_r = 0.5 * (u + st.ip1(u))
+        v_r = 0.5 * (v + st.jp1(v))
+        Ustar = 0.01 * torch.abs(rnd(*shp2))
+        Ustar = torch.where(rnd(*shp2) > 1.28, 0.0, Ustar)
+        planes = [Ustar, 3e-8 * rnd(*shp2), 1e-8 * torch.abs(rnd(*shp2)),
+                  torch.abs(grid.f), 1e-5 * rnd(*shp2), 1e-6 * rnd(*shp2),
+                  2e-5 * torch.abs(rnd(*shp2))]
+        if name == "kpp":
+            flip = torch.where(rnd(*shp2) < -0.52, -1.0, 1.0)
+            cols = [u_r, v_r, pden * flip, bvf * flip, Hz, z_w]
+            return (cfg, *cols, *planes), cols + planes
+        cols = [t, z_r, Hz, z_w, u_r, v_r]
+        return (cfg, *cols, *planes), cols + planes
     if name == "prsgrd32":
         args = (cfg, grid, rho, z_r, z_w, Hz)
         return args, [rho, z_r, Hz, z_w[N], grid.umask, grid.vmask,
@@ -280,9 +346,31 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
     raise KeyError(name)
 
 
+def bulk_inputs(torch, cfg, grid, t, z_r, rnd):
+    """Seeded atmosphere over the analytic one's shortwave at the model's
+    start (January 1, part of the channel in daylight): winds of both
+    signs, nonzero Vwind and rain, air temperatures on both sides of the
+    SST, relative and specific humidities."""
+    from roms_tpu_torch.core.bulk_flux import AtmState
+    from roms_tpu_torch.functionals import benchmark as bm
+    from roms_tpu_torch.ops.prep import surface_rho
+    shp2 = cfg.shape2d
+    sst, sss = t[0][-1], t[1][-1]
+    Hair = torch.clamp(0.8 + 0.1 * rnd(*shp2), 0.3, 1.0)
+    atm = AtmState(
+        Uwind=10.0 * rnd(*shp2), Vwind=5.0 * rnd(*shp2),
+        Tair=sst + 2.0 * rnd(*shp2), Pair=1013.0 + 10.0 * rnd(*shp2),
+        Hair=torch.where(rnd(*shp2) > 0.67, 12.0, Hair),
+        cloud=torch.clamp(0.5 + 0.2 * rnd(*shp2), 0.0, 1.0),
+        rain=1e-4 * torch.abs(rnd(*shp2)),
+        srflx=bm.make_atm_fn(cfg, grid)(0.0).srflx)
+    rho_surf = surface_rho(cfg, t, z_r)
+    return (cfg, atm, sst, sss, rho_surf), list(atm) + [sst, sss, rho_surf]
+
+
 def entry_fns(name):
-    from roms_tpu_torch.ops import (flux, prsgrd, rho, rhs3d, step2d, tadv,
-                                    uv, uvmix, vdiff)
+    from roms_tpu_torch.ops import (bulk, flux, hmix, kpp, prep, prsgrd, rho,
+                                    rhs3d, step2d, tadv, uv, uvmix, vdiff)
     return {
         "rho_eos": (rho.rho_eos, rho.rho_eos_plain),
         "tadv_predictor": (tadv.predictor, tadv.predictor_plain),
@@ -298,6 +386,10 @@ def entry_fns(name):
         "uv3dmix2_s": (uvmix.uv3dmix2_s, uvmix.uv3dmix2_s_plain),
         "fast_loop_res": (step2d.fast_loop_res,
                           step2d.fast_loop_res_plain),
+        "bulk_flux": (bulk.bulk_flux, bulk.bulk_flux_plain),
+        "kpp": (kpp.kpp, kpp.kpp_plain),
+        "prep": (prep.prep, prep.prep_plain),
+        "rot_div_geo": (hmix.rot_div_geo, hmix.rot_div_geo_plain),
     }[name]
 
 
@@ -330,13 +422,39 @@ def compare(torch, name, args, dtype):
     return rel, abs_err
 
 
+def hsbl_check(torch, name, args, dtype):
+    """KPP's boundary-layer depth column by column, kernel against plain:
+    one rounding apart at a threshold test moves a whole column.  Prints
+    the columns that differ and the seeded regimes the inputs reach."""
+    kern, plain = entry_fns(name)
+    h_k, h_p = kern(*args)[-1], plain(*args)[-1]
+    z_w = args[6] if name == "kpp" else args[4]
+    Ustar, Bo = args[7], args[8]
+    torch.cuda.synchronize()
+    tol = TOL[dtype] * float(h_p.abs().max())
+    moved = int(((h_k - h_p).abs() > tol).sum())
+    no_cross = int((h_p == z_w[1]).sum())
+    stable = int(((Bo > 0) & (Ustar > 0)).sum())
+    print(f"kernel benchmark   {name:15s} {dtype}: hsbl columns off by more "
+          f"than {TOL[dtype]:.0e} rel: {moved} of {h_p.numel()}; plain "
+          f"columns with no crossing (hsbl = z_w[1]) {no_cross}, under "
+          f"stable forcing (Bo > 0, Ustar > 0) {stable}, unstable (Bo < 0) "
+          f"{int((Bo < 0).sum())}", flush=True)
+    if moved:
+        FAILURES.append(f"{name} {dtype}: {moved} hsbl columns moved")
+    if name == "kpp" and not (0 < no_cross < h_p.numel() and stable
+                              and (Bo < 0).any()):
+        FAILURES.append(f"{name} {dtype}: the seeded columns miss a regime")
+
+
 def kernel_phase_checks(torch):
+    from roms_tpu_torch.config import LBC, BoundaryConfig
     from roms_tpu_torch.ops import _lib
     for app, spec in APPS.items():
         for (Lm, Mm, N) in spec["kernel_sizes"]:
             for dtype in ("float64", "float32"):
                 env = setup(torch, Lm, Mm, N, dtype, app=app)
-                for name in spec["entries"]:
+                for name in spec["entries"] + spec.get("off_path", []):
                     iics = (0, 1, 5) if name in (
                         "tadv_predictor", "uv_solve") else (
                         (0, 5) if name == "fast_loop_res" else (5,))
@@ -354,6 +472,18 @@ def kernel_phase_checks(torch):
                             *args[1:])
                     rel, abs_err = compare(torch, "rho_eos", args, dtype)
                     print(f"kernel rho_eos JM95     {dtype} N={N} "
+                          f"Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
+                          f"abs {abs_err:.3e}", flush=True)
+                if app == "benchmark":
+                    for name in ("kpp", "prep"):
+                        args, _ = entry_inputs(torch, name, *env, 5)
+                        hsbl_check(torch, name, args, dtype)
+                    # the rotated mixing with closed walls all round
+                    args, _ = entry_inputs(torch, "rot_div_geo", *env, 5)
+                    cfg = args[0].replace(bc=BoundaryConfig.uniform(LBC()))
+                    rel, abs_err = compare(torch, "rot_div_geo",
+                                           (cfg, *args[1:]), dtype)
+                    print(f"kernel rot_div_geo closed {dtype} N={N} "
                           f"Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
                           f"abs {abs_err:.3e}", flush=True)
                 del env
@@ -389,7 +519,7 @@ def make_model(torch, app, Lm, Mm, N, dtype, use_kernels, dt, perturb):
 def slice_parity(torch, app):
     from roms_tpu_torch.ops import _lib
     Lm, Mm, N, dt = APPS[app]["parity"]
-    perturb = app == "upwelling"
+    perturb = app != "double_gyre"
     model, s = make_model(torch, app, Lm, Mm, N, "float64", False, dt,
                           perturb)
     a = model.run(s, 5)
@@ -480,7 +610,7 @@ def full_width(torch, app):
     ms_step = start.elapsed_time(end) / nsteps
     print(f"full width {app} {Mm + 2}x{Lm + 2}x{N} float32: {ms_step:.3f} "
           f"ms/step (CUDA events), host wall {1e3 * wall / nsteps:.3f} "
-          f"ms/step, nfast={model.nfast}", flush=True)
+          f"ms/step, nfast={model.nfast} [{CARD}]", flush=True)
     print(f"{app} launches in {nsteps} steps: {counts}; plain-version "
           f"calls: 0; fast loop CUDA launches per call: "
           f"{step2d.PHASES * model.nfast if counts['fast_loop_res'] else 0}",
@@ -494,14 +624,34 @@ def full_width(torch, app):
         x = getattr(s, f)
         if not torch.isfinite(x).all():
             fail(f"full width {app}: {f} not finite")
+    # the area-weighted interior mean (cell areas 1/(pm pn) vary with
+    # latitude on the spherical BENCHMARK grid)
     zi = s.zeta[1:-1, 1:-1].double()
-    vol = float(zi.mean())
+    area = (1.0 / (model.grid.pm * model.grid.pn))[1:-1, 1:-1].double()
+    vol = float((zi * area).sum() / area.sum())
     zmax = float(zi.abs().max())
     print(f"{app} interior mean zeta {vol:.3e} (max|zeta| {zmax:.3e}), "
           f"max|u| {float(s.u.abs().max()):.3e}", flush=True)
     # float32 roundoff: the interior mean stays within eps32*max|zeta|
     if not abs(vol) <= 1.2e-7 * zmax:
         fail(f"{app}: interior volume not conserved to float32 roundoff")
+    if app == "benchmark":
+        # the boundary layer of the last state lies in the water column
+        from roms_tpu_torch.ops import prep
+        from roms_tpu_torch.ops.prep import surface_rho
+        forcing = model.forcing_fn(s.time, s.t[0][-1], s.t[1][-1],
+                                   surface_rho(model.cfg, s.t, s.z_r))
+        hsbl = prep.prep_fused(model.cfg, model.grid, s.t, s.u, s.v, s.Hz,
+                               s.z_r, s.z_w, forcing)[-1]
+        below = int((hsbl < s.z_w[0]).sum())
+        above = int((hsbl > s.z_w[-1]).sum())
+        zbl = s.z_w[-1] - hsbl
+        print(f"benchmark KPP boundary layer depth: {float(zbl.min()):.2f}"
+              f" to {float(zbl.max()):.2f} m, mean {float(zbl.mean()):.2f}"
+              f" m; columns outside [z_w[0], z_w[N]]: {below + above}",
+              flush=True)
+        if below + above or not torch.isfinite(hsbl).all():
+            fail("benchmark: KPP boundary layer outside the water column")
     if app == "upwelling":
         # x-uniform initial state and wind: zeta stays x-uniform
         xu = float((s.zeta - s.zeta[:, :1]).abs().max())
@@ -513,13 +663,14 @@ def full_width(torch, app):
 
 
 def kernel_table(torch, app, counts):
-    """Each of the app's entry points timed at its full-width float32
-    shapes, beside its plain version's time and its bound, with its
-    launches from the full-width run; rows of the kernels JSON."""
+    """Each of the app's entry points (and those checked off its path)
+    timed at its full-width float32 shapes, beside its plain version's
+    time and its bound, with its launches from the app's full-width run;
+    rows of the kernels JSON."""
     Lm, Mm, N = APPS[app]["full"]
     env = setup(torch, Lm, Mm, N, "float32", app=app)
     table = []
-    for name in APPS[app]["entries"]:
+    for name in APPS[app]["entries"] + APPS[app].get("off_path", []):
         src, rep = SOURCES[name]
         args, ins = entry_inputs(torch, name, *env, 5)
         rel, abs_err = compare(torch, name, args, "float32")
@@ -546,6 +697,14 @@ def kernel_table(torch, app, counts):
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{byts / 1e6:.1f} MB)  launches/step "
               f"{counts[name] / 10:g}  rel {rel:.2e}", flush=True)
+        if name == "bulk_flux":
+            # the wrapper's PyTorch part: the U/V staggering of the
+            # stresses after the kernel
+            from roms_tpu_torch.core.bulk_flux import stagger_stress
+            stag_ms = cuda_ms(torch, lambda: stagger_stress(
+                args[0], outs[0], outs[1]), 20)
+            print(f"{app} bulk_flux stagger_stress alone {stag_ms:.4f} ms "
+                  f"of the wrapper's {ms:.4f} ms", flush=True)
         if name == "fast_loop_res":
             sub = FAST_LOOP_PLANES_PER_SUBSTEP * outs[0].numel() * \
                 outs[0].element_size()
@@ -618,10 +777,13 @@ def profile_step(torch, app):
         "rho_kernel", "tadv_kernel", "rhs3d_kernel", "uv_solve_kernel",
         "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
         "prsgrd_kernel", "uvmix_kernel", "flux_phase", "zeta_phase",
-        "mom_phase"))]
+        "mom_phase", "bulk_kernel", "kpp_kernel", "rot_div_geo_kernel"))]
     ours_us = sum(e.self_device_time_total for e in ours)
     print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "
           f"time in {sum(e.count for e in ours)} launches", flush=True)
+    for e in sorted(ours, key=lambda e: -e.self_device_time_total):
+        print(f"  ours {e.self_device_time_total / 1e3:9.4f} ms "
+              f"{e.count:6d}x  {e.key[:90]}", flush=True)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}", flush=True)

@@ -176,3 +176,94 @@ def uv3dmix4_s(cfg: ModelConfig, grid: Grid, u, v, u_part, v_part, Hz,
     rufrc = rufrc - torch.sum(du, dim=0)
     rvfrc = rvfrc - torch.sum(dv, dim=0)
     return u_part, v_part, rufrc, rvfrc
+
+
+def t3dmix2_geo(cfg: ModelConfig, grid: Grid, t, t_part, Hz, z_r,
+                use_kernels: bool = False):
+    """Harmonic tracer diffusion rotated along geopotential surfaces
+    (t3dmix2_geo.h): triad scheme with min/max upwinding of the slope
+    terms; the vertical cross-flux FS closes the rotation.  With
+    use_kernels, configurations in kernel 16's class go through its
+    wrapper (ops/hmix.py) for all tracers at once."""
+    if all(d == 0.0 for d in cfg.mixing.tnu2):
+        return t_part
+    from ..ops import hmix as hmix_op
+    fn = hmix_op.rot_div_geo if use_kernels and hmix_op.covers(cfg) \
+        else hmix_op.rot_div_geo_plain
+    return t_part + cfg.dt * fn(cfg, grid, t, grid.diff2, Hz, z_r)
+
+
+def _rot_div_geo(cfg: ModelConfig, grid: Grid, q, d2, Hz, z_r, dZdx,
+                 dZde):
+    """Rotated (geopotential) flux divergence of one tracer field,
+    Hz-weighted per unit time (t3dmix2_geo.h:205-290 triad kernel);
+    shared by the harmonic and biharmonic operators."""
+    pmn = grid.pm * grid.pn
+    pm_u = 0.5 * (grid.pm + st.im1(grid.pm)) * grid.umask
+    pn_v = 0.5 * (grid.pn + st.jm1(grid.pn)) * grid.vmask
+    cff_u = 0.25 * (d2 + st.im1(d2)) * grid.on_u
+    cff_v = 0.25 * (d2 + st.jm1(d2)) * grid.om_v
+    dTdx = pm_u * (q - st.im1(q))
+    dTde = pn_v * (q - st.jm1(q))
+    if cfg.bc.ew_periodic:
+        dTdx = st.periodic_x(dTdx)
+    if cfg.bc.ns_periodic:
+        dTde = st.periodic_y(dTde)
+    dTdz_i = (q[1:] - q[:-1]) / (z_r[1:] - z_r[:-1])
+    zz = torch.zeros_like(dTdz_i[:1])
+    dTdz = torch.cat([zz, dTdz_i, zz], dim=0)         # (N+1, ...)
+
+    # horizontal fluxes with slope correction (t3dmix2_geo.h:205-245)
+    mnZ = torch.clamp(dZdx, max=0.0)
+    mxZ = torch.clamp(dZdx, min=0.0)
+    FX = cff_u * (Hz + st.im1(Hz)) * (
+        dTdx - 0.5 * (mnZ * (st.im1(dTdz)[:-1] + dTdz[1:])
+                      + mxZ * (st.im1(dTdz)[1:] + dTdz[:-1])))
+    mnZe = torch.clamp(dZde, max=0.0)
+    mxZe = torch.clamp(dZde, min=0.0)
+    FE = cff_v * (Hz + st.jm1(Hz)) * (
+        dTde - 0.5 * (mnZe * (st.jm1(dTdz)[:-1] + dTdz[1:])
+                      + mxZe * (st.jm1(dTdz)[1:] + dTdz[:-1])))
+    if cfg.bc.ew_periodic:
+        FX = st.periodic_x(FX)
+    if cfg.bc.ns_periodic:
+        FE = st.periodic_y(FE)
+
+    # vertical cross-flux at interior interfaces kk=1..N-1
+    # (t3dmix2_geo.h:248-278)
+    c = 0.5 * d2
+    dTz = dTdz[1:-1]
+    c1 = torch.clamp(dZdx[:-1], max=0.0)             # layer kk-1
+    c2 = torch.clamp(st.ip1(dZdx)[1:], max=0.0)      # layer kk, i+1
+    c3 = torch.clamp(dZdx[1:], min=0.0)
+    c4 = torch.clamp(st.ip1(dZdx)[:-1], min=0.0)
+    FS = c * (c1 * (c1 * dTz - dTdx[:-1])
+              + c2 * (c2 * dTz - st.ip1(dTdx)[1:])
+              + c3 * (c3 * dTz - dTdx[1:])
+              + c4 * (c4 * dTz - st.ip1(dTdx)[:-1]))
+    e1 = torch.clamp(dZde[:-1], max=0.0)
+    e2 = torch.clamp(st.jp1(dZde)[1:], max=0.0)
+    e3 = torch.clamp(dZde[1:], min=0.0)
+    e4 = torch.clamp(st.jp1(dZde)[:-1], min=0.0)
+    FS = FS + c * (e1 * (e1 * dTz - dTde[:-1])
+                   + e2 * (e2 * dTz - st.jp1(dTde)[1:])
+                   + e3 * (e3 * dTz - dTde[1:])
+                   + e4 * (e4 * dTz - st.jp1(dTde)[:-1]))
+    FSfull = torch.cat([zz, FS, zz], dim=0)
+    return pmn * (st.dx_p(FX) + st.dy_p(FE)) + (FSfull[1:] - FSfull[:-1])
+
+
+def t3dmix4_geo(cfg: ModelConfig, grid: Grid, t, t_part, Hz, z_r,
+                use_kernels: bool = False):
+    """Biharmonic tracer mixing rotated along geopotentials
+    (t3dmix4_geo.h): the rotated harmonic triad operator applied twice
+    with sqrt(tnu4) each pass, the intermediate Laplacian boundary-treated
+    like the along-s biharmonic."""
+    if all(d == 0.0 for d in cfg.mixing.tnu4):
+        return t_part
+    from ..ops import hmix as hmix_op
+    fn = hmix_op.rot_div_geo if use_kernels and hmix_op.covers(cfg) \
+        else hmix_op.rot_div_geo_plain
+    Laps = fn(cfg, grid, t, grid.diff4, Hz, z_r) / Hz
+    Laps = torch.stack([_lap_bc(cfg, cfg.bc.t, Lap) for Lap in Laps])
+    return t_part - cfg.dt * fn(cfg, grid, Laps, grid.diff4, Hz, z_r)

@@ -28,32 +28,43 @@ def tracer_predictor_coefs(cfg: ModelConfig, iic: int):
 def pre_step3d(cfg: ModelConfig, grid: Grid, u, v, t, t_prev,
                ru_prev, rv_prev, ru_prev2, rv_prev2,
                Hz, z_r, z_w, Huon, Hvom, W, forcing, bustr, bvstr,
-               iic: int, use_kernels: bool = True):
+               iic: int, use_kernels: bool = True, ghats=None):
     """Returns (t_half, t_part, u_part, v_part); inputs at time n,
-    t_prev at n-1, ru_prev/ru_prev2 the RHS at n-1/n-2."""
+    t_prev at n-1, ru_prev/ru_prev2 the RHS at n-1/n-2.  ghats: the
+    KPP nonlocal flux Akt*ghats (NAT, N+1, Mj, Li), or None."""
     from ..ops import tadv
     cff, cff1, cff2 = tracer_predictor_coefs(cfg, iic)
     fn = tadv.predictor if use_kernels else tadv.predictor_plain
     t_half = fn(cfg, grid, t, t_prev, Huon, Hvom, W, Hz, cff, cff1, cff2)
     t_half = boundary.bc_rho(t_half, cfg.bc.t)
     return (t_half, *_seeds(cfg, grid, u, v, t, ru_prev, rv_prev,
-                            ru_prev2, rv_prev2, Hz, forcing, bustr,
-                            bvstr, iic))
+                            ru_prev2, rv_prev2, Hz, z_w, forcing, bustr,
+                            bvstr, iic, ghats))
 
 
 def _seeds(cfg, grid, u, v, t, ru_prev, rv_prev, ru_prev2, rv_prev2,
-           Hz, forcing, bustr, bvstr, iic):
+           Hz, z_w, forcing, bustr, bvstr, iic, ghats):
     """Column-local corrector seeds (pre_step3d.F:700-900)."""
-    if cfg.mixing.solar_source or cfg.bodyforce:
-        raise NotImplementedError(
-            "SOLAR_SOURCE / BODYFORCE seeds: BENCHMARK slice (slice 3)")
+    if cfg.bodyforce:
+        raise NotImplementedError("BODYFORCE seeds: later slice")
     dt = cfg.dt
     # tracer seed Hz*t + dt*(surface - bottom flux); lambda=1 removes
     # the interior explicit diffusion piece
     zeros_i = torch.zeros_like(Hz[:-1])
+    if cfg.mixing.solar_source:
+        # Paulson-Simpson penetrative shortwave at interior interfaces
+        # (pre_step3d.F SOLAR_SOURCE block)
+        from .lmd import swdk_frac
+        swdk_i = swdk_frac(z_w[-1][None] - z_w[1:-1], cfg.mixing.jwtype)
     t_part = []
     for itrc in range(cfg.NT):
-        FCd = torch.cat([dt * forcing.btflx[itrc][None], zeros_i,
+        FC_int = zeros_i
+        if ghats is not None and itrc < cfg.NAT:
+            # LMD_NONLOCAL: FC -= dt*(Akt*ghats) (pre_step3d.F:705-713)
+            FC_int = FC_int - dt * ghats[itrc][1:-1]
+        if cfg.mixing.solar_source and itrc == 0:
+            FC_int = FC_int + dt * forcing.srflx[None] * swdk_i
+        FCd = torch.cat([dt * forcing.btflx[itrc][None], FC_int,
                          dt * forcing.stflx[itrc][None]], dim=0)
         t_part.append(Hz * t[itrc] + (FCd[1:] - FCd[:-1]))
     t_part = torch.stack(t_part)

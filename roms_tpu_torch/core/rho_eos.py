@@ -68,6 +68,14 @@ def _jm95_parts(cfg: ModelConfig, t):
     return T, S, sqrtS, den1, b0, b1, b2
 
 
+def rho_eos_jm95(cfg: ModelConfig, t, z_r):
+    """Nonlinear in-situ density anomaly (Jackett & McDougall 1995)."""
+    _, _, _, den1, b0, b1, b2 = _jm95_parts(cfg, t)
+    bulk = b0 - z_r * (b1 - z_r * b2)
+    rho = den1 * bulk / (bulk + 0.1 * z_r)
+    return rho - 1000.0
+
+
 def rho_eos(cfg: ModelConfig, t, z_r, Hz, z_w, use_kernels: bool = True):
     """(rho, pden, rhoA, rhoS, bvf) — see ops/rho.py."""
     from ..ops import rho as rho_op

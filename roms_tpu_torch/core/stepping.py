@@ -5,21 +5,24 @@ One `step` = prep (mass fluxes, EOS, forcing, bottom drag, vertical
 mixing, omega), the predictor stage (pre_step3d, pressure gradient,
 RHS, horizontal mixing), the fast barotropic loop, new depths, then the
 3D correctors.  The port carries the branches of the closed-basin
-DOUBLE_GYRE class and of the EW-periodic UPWELLING channel; every other
-hook raises NotImplementedError naming the slice that brings it.
+DOUBLE_GYRE class, the EW-periodic UPWELLING channel and the BENCHMARK
+full physics (JM95, COARE bulk fluxes that take the ocean surface state,
+LMD-KPP with the solar source and nonlocal transport, MIX_GEO_TS,
+quadratic drag); every other hook raises NotImplementedError naming the
+slice that brings it.
 
 Kernels: `Model(..., use_kernels=True)` (the default) sends the kernel
 entry points through their wrappers, which launch the CUDA kernels on
-CUDA tensors and take the plain PyTorch versions on CPU tensors.  The
-channel kernels (flux/omega, prsgrd32, uv3dmix2_s, the fast loop) run
-where their `covers(cfg)` holds, exactly where roms_tpu runs its Pallas
-kernels, and the step takes the plain code elsewhere.
-`use_kernels=False` is the only way to run the plain versions on the
-card.
+CUDA tensors and take the plain PyTorch versions on CPU tensors.  Each
+kernel runs where its `covers(cfg)` holds, exactly where roms_tpu runs
+its Pallas kernel, and the step takes the plain code elsewhere.
+`use_kernels=False` runs every kernel's plain version on the same route
+(the bulk forcing included) and is the only way to run them on the card.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Optional
 
 import torch
@@ -27,7 +30,8 @@ import torch
 from ..config import ModelConfig
 from ..grid.depth import set_depth, set_massflux
 from ..grid.grid import Grid
-from ..ops import flux as flux_op, prsgrd as prsgrd_op, stencil as st
+from ..ops import flux as flux_op, prep as prep_op
+from ..ops import prsgrd as prsgrd_op, stencil as st
 from . import hmix, omega as omega_mod, prsgrd, rhs3d, set_vbc
 from .pre_step3d import pre_step3d
 from .rho_eos import rho_eos
@@ -63,29 +67,51 @@ def default_vmix(cfg: ModelConfig):
 
 
 def _check_config(cfg: ModelConfig):
-    if cfg.mixing.vmix in ("lmd", "gls", "my25"):
+    m = cfg.mixing
+    if m.vmix in ("gls", "my25"):
         raise NotImplementedError(
-            f"vertical closure '{cfg.mixing.vmix}': LMD-KPP with the "
-            "BENCHMARK slice (slice 3), GLS/MY2.5 with the last slice")
+            f"vertical closure '{m.vmix}': GLS/MY2.5 (ROADMAP Queue 1 "
+            "item 5)")
+    if m.vmix == "lmd" and (m.bkpp or m.ddmix):
+        raise NotImplementedError(
+            "LMD_BKPP / LMD_DDMIX: ROADMAP Queue 1 item 5")
     if cfg.prsgrd != "djs":
         raise NotImplementedError(
-            f"pressure gradient '{cfg.prsgrd}': later slice")
+            f"pressure gradient '{cfg.prsgrd}': ROADMAP Queue 1 item 7")
     if cfg.step2d != "lf_am3":
-        raise NotImplementedError("FB barotropic engine: later slice")
-    m = cfg.mixing
-    if m.smagorinsky or m.mix_iso_ts or m.mix_geo_ts or m.mix_geo_uv:
+        raise NotImplementedError("FB barotropic engine: ROADMAP Queue 1 "
+                                  "item 7")
+    if m.smagorinsky:
         raise NotImplementedError(
-            "rotated / Smagorinsky mixing: BENCHMARK slice (slice 3)")
+            "Smagorinsky mixing: ROADMAP Queue 1 item 7")
+    if m.mix_iso_ts:
+        raise NotImplementedError(
+            "isopycnal tracer mixing (MIX_ISO_TS): ROADMAP Queue 1 item 7")
+    if m.mix_geo_uv:
+        raise NotImplementedError(
+            "geopotential momentum mixing (MIX_GEO_UV): ROADMAP Queue 1 "
+            "item 7")
     if cfg.omega_implicit or cfg.wetdry or cfg.bc.ns_periodic:
         raise NotImplementedError(
             "OMEGA_IMPLICIT / WET_DRY / NS-periodic grids: later slice")
 
 
+def kpp_route(cfg: ModelConfig) -> Optional[str]:
+    """The LMD-KPP route of the step (roms_tpu/core/stepping.py:194-
+    200, 296-307): "prep" (EOS and KPP fused, kernel 15) in its class,
+    None outside it.  roms_tpu takes KPP alone (kernel 14, :308-318)
+    only beside a BBL closure, which the port does not run yet."""
+    return "prep" if prep_op.covers(cfg) else None
+
+
 class Model:
     """Static configuration plus the step function.
 
-    forcing_fn(time) -> Forcing; vmix_fn(state, grid, z_w) -> (Akv, Akt).
-    The device is the grid's.
+    forcing_fn(time) -> Forcing, or, for bulk fluxes,
+    forcing_fn(time, sst, sss, rho_surf, use_kernels) -> Forcing
+    (core/bulk_flux.make_bulk_forcing), which gets the Model's
+    use_kernels; vmix_fn(state, grid, z_w) -> (Akv, Akt), unused under
+    LMD mixing.  The device is the grid's.
     """
 
     def __init__(self, cfg: ModelConfig, grid: Grid,
@@ -100,6 +126,9 @@ class Model:
         self.cfg = cfg
         self.grid = grid
         self.forcing_fn = forcing_fn
+        self._forcing_takes_state = (
+            len(inspect.signature(forcing_fn).parameters) > 1)
+        self.kpp_route = kpp_route(cfg)
         self.vmix_fn = vmix_fn or default_vmix(cfg)
         self.use_kernels = bool(use_kernels)
         self.nfast, w1, w2 = power_law_weights(cfg.ndtfast)
@@ -124,12 +153,33 @@ class Model:
             Huon, Hvom = set_massflux(grid, state.u, state.v, Hz)
             if cfg.bc.ew_periodic:
                 Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
-        rho, _pden, rhoA, rhoS, _bvf = rho_eos(cfg, state.t, z_r, Hz, z_w,
-                                               use_kernels=kern)
-        forcing = self.forcing_fn(state.time)
+        route = self.kpp_route
+        if route == "prep":
+            # EOS and KPP share one kernel after the forcing; the bulk
+            # fluxes need the top rho level first
+            rho_surf = prep_op.surface_rho(cfg, state.t, z_r)
+        else:
+            rho, _, rhoA, rhoS, _ = rho_eos(cfg, state.t, z_r, Hz, z_w,
+                                            use_kernels=kern)
+            rho_surf = rho[-1]
+        if self._forcing_takes_state:
+            sss = state.t[1][-1] if cfg.NT > 1 \
+                else torch.zeros_like(rho_surf)
+            forcing = self.forcing_fn(state.time, state.t[0][-1], sss,
+                                      rho_surf, use_kernels=kern)
+        else:
+            forcing = self.forcing_fn(state.time)
         bustr, bvstr = set_vbc.bottom_drag(cfg, grid, state.u, state.v,
                                            Hz, z_r, z_w)
-        Akv, Akt = self.vmix_fn(state, grid, z_w)
+        ghats_flux = None
+        if route == "prep":
+            (rho, _, rhoA, rhoS, Akv, Akt, ghats,
+             _) = prep_op.prep_fused(cfg, grid, state.t, state.u, state.v,
+                                     Hz, z_r, z_w, forcing,
+                                     use_kernels=kern)
+            ghats_flux = Akt * ghats
+        else:
+            Akv, Akt = self.vmix_fn(state, grid, z_w)
         if not fused_flux:
             W = omega_mod.omega(cfg, grid, Huon, Hvom, z_w)
 
@@ -138,12 +188,18 @@ class Model:
             cfg, grid, state.u, state.v, state.t, state.t_prev,
             state.ru_prev, state.rv_prev, state.ru_prev2, state.rv_prev2,
             Hz, z_r, z_w, Huon, Hvom, W, forcing, bustr, bvstr, iic,
-            use_kernels=kern)
+            use_kernels=kern, ghats=ghats_flux)
         pgf = prsgrd_op.prsgrd32 if kern and prsgrd_op.covers(cfg, grid) \
             else prsgrd.prsgrd32
         ru, rv = pgf(cfg, grid, rho, z_r, z_w, Hz)
-        t_part = hmix.t3dmix2_s(cfg, grid, state.t, t_part, Hz)
-        t_part = hmix.t3dmix4_s(cfg, grid, state.t, t_part, Hz)
+        if cfg.mixing.mix_geo_ts:
+            t_part = hmix.t3dmix2_geo(cfg, grid, state.t, t_part, Hz, z_r,
+                                      use_kernels=kern)
+            t_part = hmix.t3dmix4_geo(cfg, grid, state.t, t_part, Hz, z_r,
+                                      use_kernels=kern)
+        else:
+            t_part = hmix.t3dmix2_s(cfg, grid, state.t, t_part, Hz)
+            t_part = hmix.t3dmix4_s(cfg, grid, state.t, t_part, Hz)
         ru, rv = rhs3d.rhs3d_momentum(cfg, grid, state.u, state.v, Hz,
                                       Huon, Hvom, W, ru, rv,
                                       use_kernels=kern)

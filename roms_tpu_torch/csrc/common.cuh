@@ -10,6 +10,9 @@
 namespace roms {
 
 constexpr int kThreads = 256;
+// deepest column the column kernels take (ops/_lib.py KNMAX): their
+// per-thread local arrays are sized by it
+constexpr int kNmax = 64;
 
 // jnp.roll wrap of i + s for |s| < n
 __device__ __forceinline__ int wrap(int i, int n) {

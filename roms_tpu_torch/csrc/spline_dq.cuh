@@ -10,9 +10,9 @@
 // sized by the template bound NMAX >= N (checked by the Python wrapper).
 #pragma once
 
-namespace roms {
+#include "common.cuh"
 
-constexpr int kNmax = 64;   // deepest column the column kernels take
+namespace roms {
 
 // q[0..N) is replaced by q + dq; Hzk[0..N), AK[0..N]
 template <typename T, int NMAX>

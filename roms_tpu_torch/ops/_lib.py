@@ -30,12 +30,13 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# launch counts of the twelve kernel entry points (one per wrapper
+# launch counts of the sixteen kernel entry points (one per wrapper
 # call; fast_loop_res launches ops/step2d.PHASES CUDA kernels a substep)
 launches = {name: 0 for name in (
     "rho_eos", "tadv_predictor", "tadv_corrector", "rhs3d_momentum",
     "uv_solve", "uv_finish", "spline_vdiff", "flux_omega", "omega",
-    "prsgrd32", "uv3dmix2_s", "fast_loop_res")}
+    "prsgrd32", "uv3dmix2_s", "fast_loop_res", "bulk_flux", "kpp", "prep",
+    "rot_div_geo")}
 
 _lib = None
 build_seconds = None
@@ -156,7 +157,7 @@ def check(rc: int, name: str):
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
 
 
-# deepest column the column kernels take (csrc/spline_dq.cuh kNmax)
+# deepest column the column kernels take (csrc/common.cuh kNmax)
 KNMAX = 64
 
 

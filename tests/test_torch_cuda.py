@@ -22,10 +22,13 @@ import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
 from roms_tpu_torch.ops import _lib, tadv  # noqa: E402
 
-# the seven closed-basin entry points on DOUBLE_GYRE, all twelve on the
-# EW-periodic UPWELLING channel
+# the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
+# EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
+# physics and KPP alone
 CASES = [("double_gyre", n) for n in cs.SLICE1] + [
-    ("upwelling", n) for n in cs.SOURCES]
+    ("upwelling", n) for n in cs.SLICE2] + [
+    ("benchmark", n) for n in cs.APPS["benchmark"]["entries"]
+    + cs.APPS["benchmark"]["off_path"]]
 
 
 def _need_card():

@@ -84,7 +84,8 @@ def test_port_imports_neither_jax_nor_roms_tpu():
 
 UNPORTED = sorted(tstepping._LATER) + [
     "vmix=lmd", "vmix=gls", "vmix=my25", "prsgrd=fv", "step2d=fb",
-    "step_diag", "step_diag_uv"]
+    "step_diag", "step_diag_uv", "ddmix=1", "mix_iso_ts=1", "mix_geo_uv=1",
+    "smagorinsky=1"]
 
 
 @pytest.mark.parametrize("what", UNPORTED)
@@ -101,8 +102,13 @@ def test_unported_hooks_raise(what):
         elif "=" in what:
             field, val = what.split("=")
             if field == "vmix":
+                # LMD-KPP runs since the BENCHMARK slice; its bottom
+                # boundary layer (LMD_BKPP) is still to come
                 cfg = cfg.replace(mixing=dataclasses.replace(
-                    cfg.mixing, vmix=val))
+                    cfg.mixing, vmix=val, bkpp=val == "lmd"))
+            elif hasattr(cfg.mixing, field):
+                cfg = cfg.replace(mixing=dataclasses.replace(
+                    cfg.mixing, vmix="lmd", **{field: bool(int(val))}))
             else:
                 cfg = cfg.replace(**{field: val})
             tstepping.Model(cfg, grid, forcing_fn)

@@ -187,15 +187,23 @@ def test_spline_vdiff_plain(case):
 # gate test: which Pallas kernels roms_tpu's step runs on one TPU
 # --------------------------------------------------------------------------
 
-def _fired(cfg):
-    from roms_tpu.ops import (pallas_flux, pallas_prep, pallas_prsgrd,
-                              pallas_step2d, pallas_uvmix)
-    vmix_lmd = cfg.mixing.vmix == "lmd"
+def _fired(cfg, bulk=False):
+    """roms_tpu's kernels on one TPU; `bulk`: the forcing function takes
+    the ocean surface state (make_bulk_forcing), where use_pallas_kpp
+    sends the bulk fluxes through their kernel."""
+    from roms_tpu.ops import (pallas_flux, pallas_hmix, pallas_kpp,
+                              pallas_prep, pallas_prsgrd, pallas_step2d,
+                              pallas_uvmix)
+    m = cfg.mixing
+    kpp_class = m.vmix == "lmd" and not m.bkpp and not m.ddmix
+    use_prep = pallas_prep.use_pallas_prep(cfg) and kpp_class
     gates = {
         "flux": pallas_flux.use_pallas_flux(cfg),
-        "prep": pallas_prep.use_pallas_prep(cfg) and vmix_lmd,
-        "rho": pallas_rho.use_pallas_rho(cfg)
-        and not (pallas_prep.use_pallas_prep(cfg) and vmix_lmd),
+        "prep": use_prep,
+        "rho": pallas_rho.use_pallas_rho(cfg) and not use_prep,
+        "kpp": kpp_class and not use_prep
+        and pallas_kpp.use_pallas_kpp(cfg),
+        "bulk": bulk and pallas_kpp.use_pallas_kpp(cfg),
         "tadv": pallas_tadv.use_pallas_tadv(cfg, "predictor")
         or pallas_tadv.use_pallas_tadv(cfg, "corrector"),
         "prsgrd": cfg.prsgrd == "djs"
@@ -203,6 +211,9 @@ def _fired(cfg):
         "rhs3d": jrhs3d._use_pallas_rhs3d(cfg),
         "uvmix": cfg.mixing.visc2 > 0.0
         and pallas_uvmix.use_pallas_uvmix(cfg),
+        "hmix": m.mix_geo_ts and not m.mix_iso_ts
+        and (any(m.tnu2) or any(m.tnu4)) and not cfg.bc.ns_periodic
+        and pallas_hmix.use_pallas_hmix(cfg),
         "fast_loop_pallas_res": pallas_step2d.use_pallas_fastloop_res(
             cfg, cfg.shape2d),
         "fast_loop_pallas": pallas_step2d.use_pallas_step2d(cfg),
@@ -228,25 +239,46 @@ def test_slice_covers_the_tpu_kernels_of_double_gyre(monkeypatch):
                           "uvmix", "fast_loop_pallas_res", "uv", "vdiff"}
 
 
-def _port_fired(cfg):
-    """The port's kernel classes (each ops module's `covers`), as the
-    set of roms_tpu kernel names they stand for."""
+def _port_fired(cfg, bulk=False):
+    """The port's kernel classes (each ops module's `covers`, the step's
+    LMD-KPP route), as the set of roms_tpu kernel names they stand
+    for."""
     from roms_tpu_torch import convert
-    from roms_tpu_torch.ops import (flux, prsgrd, rho, rhs3d, step2d, tadv,
-                                    uv, uvmix, vdiff)
+    from roms_tpu_torch.core.stepping import kpp_route
+    from roms_tpu_torch.ops import (bulk as tbulk, flux, hmix as thmix,
+                                    prsgrd, rho, rhs3d, step2d, tadv, uv,
+                                    uvmix, vdiff)
     from torch_port_util import cfg_dict
     tcfg = convert.config_from_dict(cfg_dict(cfg))
-    gates = {"flux": flux, "rho": rho, "tadv": tadv, "prsgrd": prsgrd,
-             "rhs3d": rhs3d, "uvmix": uvmix, "fast_loop_pallas_res": step2d,
+    gates = {"flux": flux, "tadv": tadv, "prsgrd": prsgrd, "rhs3d": rhs3d,
+             "uvmix": uvmix, "hmix": thmix, "fast_loop_pallas_res": step2d,
              "uv": uv, "vdiff": vdiff}
-    return {k for k, mod in gates.items() if mod.covers(tcfg)}
+    fired = {k for k, mod in gates.items() if mod.covers(tcfg)}
+    route = kpp_route(tcfg)
+    if route is not None:
+        fired.add(route)
+    if route != "prep" and rho.covers(tcfg):
+        fired.add("rho")
+    if bulk and tbulk.covers(tcfg):
+        fired.add("bulk")
+    return fired
 
 
 def _gate_configs():
+    """name -> (roms_tpu config, whether its forcing takes the ocean
+    surface state)."""
+    import dataclasses
+
     from roms_tpu.config import (CLAMPED, LBC, PERIODIC, BoundaryConfig)
-    from roms_tpu.functionals import upwelling
+    from roms_tpu.functionals import benchmark, upwelling
     up = upwelling.make_config(dtype="float32")
-    return {
+    bm3 = benchmark.make_config(Lm=2048, Mm=256, N=30, dtype="float32",
+                                full_physics=True)
+
+    def mixing(cfg, **kw):
+        return cfg.replace(mixing=dataclasses.replace(cfg.mixing, **kw))
+
+    cfgs = {
         "double_gyre": ia.double_gyre_config(Lm=512, Mm=1024, N=30,
                                              dt=240.0, dtype="float32"),
         "upwelling": up,
@@ -264,20 +296,42 @@ def _gate_configs():
             **{**up.mixing.__dict__, "visc2": 0.0})),
         "wetdry": up.replace(wetdry=True),
     }
+    out = {k: (c, False) for k, c in cfgs.items()}
+    out.update({
+        "benchmark3_full_physics": (bm3, True),
+        "benchmark3_light": (benchmark.make_config(
+            Lm=2048, Mm=256, N=30, dtype="float32"), False),
+        "benchmark3_bkpp": (mixing(bm3, bkpp=True), True),
+        "benchmark3_ddmix": (mixing(bm3, ddmix=True), True),
+        "benchmark3_ns_periodic": (bm3.replace(bc=BoundaryConfig.uniform(
+            LBC.ns_periodic())), True),
+        "benchmark3_constant_vmix": (mixing(bm3, vmix="constant"), True),
+        "benchmark3_tnu_zero": (mixing(bm3, tnu2=(0.0, 0.0)), True),
+    })
+    return out
+
+
+BENCHMARK3_FULL = {"flux", "prep", "tadv", "prsgrd", "rhs3d", "uvmix",
+                   "fast_loop_pallas_res", "uv", "vdiff", "hmix", "bulk"}
 
 
 @pytest.mark.parametrize("name", list(_gate_configs()))
 def test_port_gates_match_roms_tpu(monkeypatch, name):
     """On every configuration the port's kernel classes fire exactly the
     kernels roms_tpu's float32 step runs on one TPU: the closed basin,
-    the channel at the published and the full width (all nine), and
-    configurations just outside each class."""
+    the channel at the published and the full width (all nine),
+    BENCHMARK3 with the full physics (eleven) and its light variant
+    (ten), and configurations just outside each class."""
     for var in [v for v in os.environ if v.startswith("ROMS_TPU_")]:
         monkeypatch.delenv(var)
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(jax, "device_count", lambda: 1)
-    cfg = _gate_configs()[name]
-    fired = _fired(cfg)
-    assert _port_fired(cfg) == fired
+    cfg, bulk = _gate_configs()[name]
+    fired = _fired(cfg, bulk)
+    assert _port_fired(cfg, bulk) == fired
     if name.startswith("upwelling"):
         assert len(fired) == 9
+    if name == "benchmark3_full_physics":
+        assert fired == BENCHMARK3_FULL
+    if name == "benchmark3_light":
+        assert fired == BENCHMARK3_FULL - {"prep", "bulk"} | {"rho"}

@@ -182,8 +182,8 @@ def test_corrector_seeds(mc, iic):
                  a["rv"], a["ru"], a["Hz"], a["z_w"], jf, a["f2"][3],
                  a["f2"][4], jnp.asarray(iic, jnp.int32), None)
     got = t_seeds(tcfg, tgrid, t["u"], t["v"], t["t"], t["ru"], t["rv"],
-                  t["rv"], t["ru"], t["Hz"], tf, t["f2"][3], t["f2"][4],
-                  iic)
+                  t["rv"], t["ru"], t["Hz"], t["z_w"], tf, t["f2"][3],
+                  t["f2"][4], iic, None)
     _close(ref, got)
 
 
