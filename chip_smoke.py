@@ -18,25 +18,37 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      JM95 and 20-substep fast loop among them, plus KPP alone; the
      rotated tracer mixing also with closed walls; KPP's boundary-layer
      depths column by column), each at a moderate size whose Mj is not a
-     multiple of the block size and at the full width;
+     multiple of the block size and at the full width; the batched
+     tridiagonal solve of the GLS/MY2.5 path on seeded diagonally
+     dominant systems and on the four real systems of a GLS and of a
+     MY2.5 step at the same sizes;
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
-     UPWELLING Lm=48, Mm=64, N=16 and BENCHMARK full physics Lm=64,
-     Mm=32, N=16, the last two from a zonally varying state;
+     UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
+     (Kantha-Clayson) and the MY2.5 closure (the turbulence fields too)
+     and BENCHMARK full physics Lm=64, Mm=32, N=16, all but the first
+     from a zonally varying state;
   4. full width, float32, 10 steps after a warm-up step, ms/step from
      CUDA events, each entry point's launches in the run and no plain
      version called: DOUBLE_GYRE Lm=512, Mm=1024, N=30 (dt=240 s; finite
      fields, interior volume conserved), UPWELLING Lm=512, Mm=1024, N=16
      (the published dx = 1 km, dt = 300 s, ndtfast = 30; finite fields,
-     interior volume, zeta x-uniform) and BENCHMARK3 full physics
+     interior volume, zeta x-uniform), the same channel with GLS and
+     with MY2.5 (tridiag launched 4 times a step; tke, gls and Akv at
+     or above the closure's floors) and BENCHMARK3 full physics
      Lm=2048, Mm=256, N=30 (dt = 150 s, ndtfast = 20 as published;
      finite fields, interior volume, the KPP boundary layer inside the
      water column), then each kernel's time at its path's full-width
-     shapes next to its plain version and its bound.
+     shapes next to its plain version, its bound and, for the
+     tridiagonal solve, torch.linalg.solve on the same systems; after
+     the checks, three more 10-step windows of each app, timed by CUDA
+     events and on the host, and the card's SM clock during a fourth,
+     for the step's spread within one call.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -101,13 +113,13 @@ def main():
     for app in APPS:
         slice_parity(torch, app)
     counts = {app: full_width(torch, app) for app in APPS}
-    # one row per entry point, at the newest path that runs it
-    table = kernel_table(torch, "benchmark", counts["benchmark"])
-    done = {row["name"] for row in table}
-    table += [row for row in kernel_table(torch, "upwelling",
-                                          counts["upwelling"])
-              if row["name"] not in done]
-    kernel_table(torch, "double_gyre", counts["double_gyre"])
+    # one row per entry point, at the newest path that times it (the GLS
+    # path times only the solve it adds to the channel's kernels)
+    table = []
+    for app in ("upwelling_gls", "benchmark", "upwelling", "double_gyre"):
+        rows = kernel_table(torch, app, counts[app])
+        done = {row["name"] for row in table}
+        table += [row for row in rows if row["name"] not in done]
     files = sorted({os.path.basename(src) for src, _ in SOURCES.values()})
     print(f"kernels: {files} ({len(files)} files, {len(table)} entry "
           f"points)", flush=True)
@@ -153,6 +165,8 @@ SOURCES = {
     "prep": ("roms_tpu_torch/csrc/kpp.cu", "roms_tpu/ops/pallas_prep.py:76"),
     "rot_div_geo": ("roms_tpu_torch/csrc/hmix.cu",
                     "roms_tpu/ops/pallas_hmix.py:185"),
+    "tridiag": ("roms_tpu_torch/csrc/tridiag.cu",
+                "roms_tpu/ops/pallas_tridiag.py:60"),
 }
 SLICE1 = list(SOURCES)[:7]
 SLICE2 = list(SOURCES)[:12]
@@ -166,7 +180,7 @@ FLOPS_PER_POINT = {"rho_eos": 12, "tadv_predictor": 90,
                    "flux_omega": 15, "omega": 7, "prsgrd32": 130,
                    "uv3dmix2_s": 60, "fast_loop_res": 470,
                    "bulk_flux": 700, "kpp": 160, "prep": 230,
-                   "rot_div_geo": 85}
+                   "rot_div_geo": 85, "tridiag": 9}
 # (Mj, Li) planes a fast-loop substep after the first reads or writes,
 # each counted once per phase (csrc/step2d.cu: flux 18 + 12, zeta 10 +
 # 11, momentum 37 + 39), for the per-substep traffic line
@@ -185,11 +199,26 @@ APPS = {
     # and kernels 13 and 16; KPP alone (kernel 14, the same column
     # without the EOS) is off it, and is checked and timed at its shapes
     "benchmark": dict(entries=[n for n in SOURCES
-                               if n not in ("rho_eos", "kpp")],
+                               if n not in ("rho_eos", "kpp", "tridiag")],
                       off_path=["kpp"], dt=150.0,
                       kernel_sizes=((201, 101, 30), (2048, 256, 30)),
                       parity=(64, 32, 16, 150.0),
                       full=(2048, 256, 30)),
+    # the channel with the GLS (Kantha-Clayson, upwelling.h:44-47) and
+    # MY2.5 closures: the twelve channel entry points, checked under
+    # "upwelling" at the same shapes, plus the tridiagonal solve four
+    # times a step
+    "upwelling_gls": dict(entries=SLICE2 + ["tridiag"], checked=["tridiag"],
+                          per_step={"tridiag": 4}, dt=300.0,
+                          kernel_sizes=((100, 203, 16), (512, 1024, 16)),
+                          parity=(48, 64, 16, 300.0), full=(512, 1024, 16),
+                          mixing=dict(vmix="gls",
+                                      gls_stab="kantha_clayson")),
+    "upwelling_my25": dict(entries=SLICE2 + ["tridiag"], checked=[],
+                           per_step={"tridiag": 4}, dt=300.0,
+                           kernel_sizes=((100, 203, 16), (512, 1024, 16)),
+                           parity=(48, 64, 16, 300.0),
+                           full=(512, 1024, 16), mixing=dict(vmix="my25")),
 }
 
 
@@ -211,10 +240,14 @@ def app_setup(app, Lm, Mm, N, dtype, dt):
             forcing_fn=bm.make_bulk_forcing_fn(cfg, grid))
     from roms_tpu_torch.functionals import upwelling as up
     cfg = up.make_config(Lm=Lm, Mm=Mm, N=N, dt=dt, dtype=dtype)
+    closure = APPS[app].get("mixing")
+    if closure:
+        cfg = cfg.replace(mixing=dataclasses.replace(cfg.mixing, **closure))
     grid = up.make_grid(cfg, device=DEVICE)
-    return cfg, grid, up.make_initial(cfg, grid), dict(
-        forcing_fn=up.make_forcing_fn(cfg, grid),
-        vmix_fn=up.make_vmix_fn(cfg))
+    kw = dict(forcing_fn=up.make_forcing_fn(cfg, grid))
+    if not closure:
+        kw["vmix_fn"] = up.make_vmix_fn(cfg)
+    return cfg, grid, up.make_initial(cfg, grid), kw
 
 
 def setup(torch, Lm, Mm, N, dtype, seed=7, app="double_gyre"):
@@ -250,6 +283,14 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
         Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
     W = omega(cfg, grid, Huon, Hvom, z_w)
     pmn = grid.pm * grid.pn
+    if name == "tridiag":
+        # diagonally dominant systems on the N-1 interior interfaces,
+        # the shape of the GLS/MY2.5 solves
+        shp = (N - 1,) + shp2
+        lower, upper = 0.5 * rnd(*shp), 0.5 * rnd(*shp)
+        diag = 2.0 + lower.abs() + upper.abs() + rnd(*shp).abs()
+        rhs = rnd(*shp)
+        return (lower, diag, upper, rhs), [lower, diag, upper, rhs]
     if name == "rho_eos":
         args = (cfg, t, z_r, Hz, z_w)
         return args, [t, z_r, Hz, z_w]
@@ -370,7 +411,8 @@ def bulk_inputs(torch, cfg, grid, t, z_r, rnd):
 
 def entry_fns(name):
     from roms_tpu_torch.ops import (bulk, flux, hmix, kpp, prep, prsgrd, rho,
-                                    rhs3d, step2d, tadv, uv, uvmix, vdiff)
+                                    rhs3d, step2d, tadv, tridiag, uv, uvmix,
+                                    vdiff)
     return {
         "rho_eos": (rho.rho_eos, rho.rho_eos_plain),
         "tadv_predictor": (tadv.predictor, tadv.predictor_plain),
@@ -390,6 +432,7 @@ def entry_fns(name):
         "kpp": (kpp.kpp, kpp.kpp_plain),
         "prep": (prep.prep, prep.prep_plain),
         "rot_div_geo": (hmix.rot_div_geo, hmix.rot_div_geo_plain),
+        "tridiag": (tridiag.tridiag_solve, tridiag.tridiag_plain),
     }[name]
 
 
@@ -454,7 +497,8 @@ def kernel_phase_checks(torch):
         for (Lm, Mm, N) in spec["kernel_sizes"]:
             for dtype in ("float64", "float32"):
                 env = setup(torch, Lm, Mm, N, dtype, app=app)
-                for name in spec["entries"] + spec.get("off_path", []):
+                for name in spec.get("checked", spec["entries"]) + \
+                        spec.get("off_path", []):
                     iics = (0, 1, 5) if name in (
                         "tadv_predictor", "uv_solve") else (
                         (0, 5) if name == "fast_loop_res" else (5,))
@@ -486,11 +530,44 @@ def kernel_phase_checks(torch):
                     print(f"kernel rot_div_geo closed {dtype} N={N} "
                           f"Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
                           f"abs {abs_err:.3e}", flush=True)
+                if spec.get("mixing"):
+                    systems = closure_systems(torch, app, Lm, Mm, N, dtype)
+                    if len(systems) != 4:
+                        FAILURES.append(f"{app}: {len(systems)} tridiag "
+                                        "solves in a step, expected 4")
+                    for i, args in enumerate(systems):
+                        rel, abs_err = compare(torch, "tridiag", args,
+                                               dtype)
+                        print(f"kernel {app:11s} tridiag {dtype} step "
+                              f"system {i} {tuple(args[3].shape)}: max rel "
+                              f"{rel:.3e} max abs {abs_err:.3e}", flush=True)
                 del env
                 torch.cuda.empty_cache()
     if FAILURES:
         fail("kernel phase:\n  " + "\n  ".join(FAILURES))
     _lib.reset_launches()
+
+
+def closure_systems(torch, app, Lm, Mm, N, dtype):
+    """The tridiagonal systems (lower, diag, upper, rhs) that the second
+    step of the app's model solves from a zonally varying state: two
+    spline shear solves and the two turbulence solves."""
+    from roms_tpu_torch.ops import tridiag
+    model, s = make_model(torch, app, Lm, Mm, N, dtype, True,
+                          APPS[app]["dt"], True)
+    s = model.step(s)
+    seen = []
+    solve = tridiag.tridiag_solve
+
+    def spy(*args):
+        seen.append(args[:4])
+        return solve(*args)
+    tridiag.tridiag_solve = spy
+    try:
+        model.step(s)
+    finally:
+        tridiag.tridiag_solve = solve
+    return seen
 
 
 # --------------------------------------------------------------------------
@@ -529,17 +606,22 @@ def slice_parity(torch, app):
     model, s = make_model(torch, app, Lm, Mm, N, "float64", True, dt,
                           perturb)
     b = model.run(s, 5)
+    per_step = APPS[app].get("per_step", {})
     for name in APPS[app]["entries"]:
-        if _lib.launches[name] != 5:
+        if _lib.launches[name] != 5 * per_step.get(name, 1):
             fail(f"{app} parity: {name} launched {_lib.launches[name]} "
                  "times in 5 steps")
-    for f in ("zeta", "ubar", "vbar", "u", "v", "t"):
-        x, y = getattr(a, f), getattr(b, f)
+    pairs = [(f, getattr(a, f), getattr(b, f))
+             for f in ("zeta", "ubar", "vbar", "u", "v", "t")]
+    if a.mix is not None:
+        pairs += [(f, getattr(a.mix, f), getattr(b.mix, f))
+                  for f in a.mix._fields]
+    for f, x, y in pairs:
         if not torch.isfinite(y).all():
             fail(f"{app} slice parity: {f} not finite")
         d = float((x - y).abs().max())
         scale = float(x.abs().max())
-        print(f"{app} slice parity {f:5s}: max|diff| {d:.3e}  max|x| "
+        print(f"{app} slice parity {f:8s}: max|diff| {d:.3e}  max|x| "
               f"{scale:.3e}", flush=True)
         if d >= 1e-10 * scale + 5e-14:
             fail(f"{app} slice parity {f}: {d:.3e} vs {scale:.3e}")
@@ -615,8 +697,10 @@ def full_width(torch, app):
           f"calls: 0; fast loop CUDA launches per call: "
           f"{step2d.PHASES * model.nfast if counts['fast_loop_res'] else 0}",
           flush=True)
+    per_step = APPS[app].get("per_step", {})
     for name, n in counts.items():
-        want = nsteps if name in APPS[app]["entries"] else 0
+        want = nsteps * per_step.get(name, 1) \
+            if name in APPS[app]["entries"] else 0
         if n != want:
             fail(f"{app} {name}: {n} launches in {nsteps} steps, expected "
                  f"{want}")
@@ -652,14 +736,94 @@ def full_width(torch, app):
               flush=True)
         if below + above or not torch.isfinite(hsbl).all():
             fail("benchmark: KPP boundary layer outside the water column")
-    if app == "upwelling":
+    if s.mix is not None:
+        closure_floors(torch, app, model.cfg, s.mix)
+    if app.startswith("upwelling"):
         # x-uniform initial state and wind: zeta stays x-uniform
         xu = float((s.zeta - s.zeta[:, :1]).abs().max())
         print(f"upwelling zeta x-uniformity max|zeta - zeta[:, 0]| "
               f"{xu:.3e}", flush=True)
         if not xu <= 1e-5 * zmax:
             fail("upwelling: zeta lost its x-uniformity")
+    timing_windows(torch, app, model, s, nsteps)
     return counts
+
+
+def timing_windows(torch, app, model, s, nsteps, windows=3):
+    """The step's spread within one call: `windows` more runs of
+    `nsteps` steps, each with its CUDA-event time, the host's time to
+    issue the run (until `run` returns) and its wall time (until the
+    card is done), then one more run with the card's SM clock, power and
+    temperature read by nvidia-smi while it runs."""
+    for w in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        s = model.run(s, nsteps)
+        end.record()
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"{app} window {w}: {start.elapsed_time(end) / nsteps:.3f} "
+              f"ms/step (CUDA events), host issue {1e3 * issued / nsteps:.3f}"
+              f" ms/step, host wall {1e3 * wall / nsteps:.3f} ms/step "
+              f"[{CARD}]", flush=True)
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    s = model.run(s, nsteps)
+    torch.cuda.synchronize()
+    out = smi.communicate()[0].strip()
+    print(f"{app} card during a further {nsteps} steps (SM clock, max SM "
+          f"clock, power, temperature): {out}", flush=True)
+
+
+def closure_floors(torch, app, cfg, mix):
+    """The turbulence fields of a GLS/MY2.5 run are finite and at or
+    above the closure's floors (gls_kmin/gls_pmin, MY2.5's QMIN) and
+    Akv at or above its background."""
+    from roms_tpu_torch.core.my25 import QMIN
+    m = cfg.mixing
+    for f in mix._fields:
+        if not torch.isfinite(getattr(mix, f)).all():
+            fail(f"full width {app}: mix.{f} not finite")
+    kmin, pmin = (QMIN, QMIN) if m.vmix == "my25" else (m.gls_kmin,
+                                                         m.gls_pmin)
+    print(f"{app} tke {float(mix.tke.min()):.3e}..{float(mix.tke.max()):.3e}"
+          f" (floor {kmin:.1e}), gls {float(mix.gls.min()):.3e}.."
+          f"{float(mix.gls.max()):.3e} (floor {pmin:.1e}), Akv "
+          f"{float(mix.Akv.min()):.3e}..{float(mix.Akv.max()):.3e} "
+          f"(background {m.akv_bak:.1e})", flush=True)
+    if not (bool((mix.tke >= kmin).all()) and bool((mix.gls >= pmin).all())
+            and bool((mix.Akv >= m.akv_bak).all())):
+        fail(f"{app}: turbulence fields below the closure's floors")
+
+
+def tridiag_library(torch, args, out):
+    """torch.linalg.solve on the same systems built densely as a
+    (Mj*Li, n, n) batch: the PyTorch call that computes the same
+    solution.  Returns the call (the dense build is not timed)."""
+    lower, diag, upper, rhs = args
+    n, P = rhs.shape[0], rhs[0].numel()
+    A = torch.zeros((P, n, n), dtype=rhs.dtype, device=rhs.device)
+    k = torch.arange(n, device=rhs.device)
+    A[:, k, k] = diag.reshape(n, P).T
+    A[:, k[1:], k[:-1]] = lower[1:].reshape(n - 1, P).T
+    A[:, k[:-1], k[1:]] = upper[:-1].reshape(n - 1, P).T
+    B = rhs.reshape(n, P).T.unsqueeze(-1).contiguous()
+
+    def call():
+        return torch.linalg.solve(A, B)
+    x = call()[..., 0].T.reshape(rhs.shape)
+    torch.cuda.synchronize()
+    mb = A.numel() * A.element_size() / 1e6
+    print(f"  torch.linalg.solve vs the kernel: max rel "
+          f"{float((x - out).abs().max() / out.abs().max()):.3e} "
+          f"({P} dense {n}x{n} systems, {mb:.0f} MB)", flush=True)
+    return call
 
 
 def kernel_table(torch, app, counts):
@@ -670,7 +834,9 @@ def kernel_table(torch, app, counts):
     Lm, Mm, N = APPS[app]["full"]
     env = setup(torch, Lm, Mm, N, "float32", app=app)
     table = []
-    for name in APPS[app]["entries"] + APPS[app].get("off_path", []):
+    spec = APPS[app]
+    for name in spec.get("checked", spec["entries"]) + \
+            spec.get("off_path", []):
         src, rep = SOURCES[name]
         args, ins = entry_inputs(torch, name, *env, 5)
         rel, abs_err = compare(torch, name, args, "float32")
@@ -687,16 +853,22 @@ def kernel_table(torch, app, counts):
         t_ops = 1e3 * flops / FP32_FLOPS
         ms = cuda_ms(torch, lambda: kern(*args), 20)
         plain_ms = cuda_ms(torch, lambda: plain(*args), 3)
+        library_ms = None
+        if name == "tridiag":
+            library_ms = cuda_ms(torch, tridiag_library(torch, args,
+                                                        outs[0]), 3)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": counts[name],
                "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None}
+               "library_ms": library_ms}
         print(f"{app} {name:15s} {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{byts / 1e6:.1f} MB)  launches/step "
-              f"{counts[name] / 10:g}  rel {rel:.2e}", flush=True)
+              f"{counts[name] / 10:g}  rel {rel:.2e}"
+              + (f"  torch.linalg.solve {library_ms:.4f} ms"
+                 if library_ms is not None else ""), flush=True)
         if name == "bulk_flux":
             # the wrapper's PyTorch part: the U/V staggering of the
             # stresses after the kernel
@@ -777,7 +949,8 @@ def profile_step(torch, app):
         "rho_kernel", "tadv_kernel", "rhs3d_kernel", "uv_solve_kernel",
         "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
         "prsgrd_kernel", "uvmix_kernel", "flux_phase", "zeta_phase",
-        "mom_phase", "bulk_kernel", "kpp_kernel", "rot_div_geo_kernel"))]
+        "mom_phase", "bulk_kernel", "kpp_kernel", "rot_div_geo_kernel",
+        "tridiag_kernel"))]
     ours_us = sum(e.self_device_time_total for e in ours)
     print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "
           f"time in {sum(e.count for e in ours)} launches", flush=True)

@@ -6,7 +6,9 @@ objects passes them as plain Python data:
   cfg   -> dataclasses.asdict(cfg)                        (nested dict)
   grid  -> {name: np.asarray(getattr(grid, name))
             for name in Grid.FIELDS + Grid.AUX}          (None stays None)
-  state -> {name: np.asarray(value)} for State's fields  (None stays None)
+  state -> {name: np.asarray(value)} for State's fields  (None stays None;
+            a GLS/MY2.5 `mix` as {name: np.asarray(value)} for
+            MixState's fields, e.g. mix._asdict())
 
 and gets back a ModelConfig, Grid or State of roms_tpu_torch on the
 requested device, holding the same numbers.
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .core.gls import MixState
 from .core.state import State
 from .device import resolve_device, torch_dtype
 from .grid.grid import Grid
@@ -67,10 +70,19 @@ def grid_from_dict(d: dict, cfg: ModelConfig, device="cuda") -> Grid:
     return Grid(**kw)
 
 
+def mix_from_dict(d: dict, cfg: ModelConfig, device="cuda") -> MixState:
+    """GLS/MY2.5 MixState from roms_tpu MixState fields."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    return MixState(**{name: _tensor(d[name], dev, dtype)
+                       for name in MixState._fields})
+
+
 def state_from_dict(d: dict, cfg: ModelConfig, device="cuda") -> State:
     """State from roms_tpu State fields (time and iic become Python
-    numbers; roms_tpu's closure/sediment/BBL/ice slots must be None)."""
-    for name in ("mix", "sed", "bbl", "ice"):
+    numbers; `mix` crosses by mix_from_dict; roms_tpu's sediment, BBL
+    and ice slots must be None)."""
+    for name in ("sed", "bbl", "ice"):
         if d.get(name) is not None:
             raise NotImplementedError(f"State.{name}: not ported yet")
     dev = resolve_device(device)
@@ -81,6 +93,9 @@ def state_from_dict(d: dict, cfg: ModelConfig, device="cuda") -> State:
             kw[name] = float(np.asarray(d[name]))
         elif name == "iic":
             kw[name] = int(np.asarray(d[name]))
+        elif name == "mix":
+            kw[name] = None if d.get(name) is None \
+                else mix_from_dict(d[name], cfg, dev)
         else:
             kw[name] = _tensor(d[name], dev, dtype)
     return State(**kw)

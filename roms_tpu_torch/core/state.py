@@ -8,7 +8,7 @@ keyed on `iic` are then plain Python, with no device sync.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -17,6 +17,8 @@ from ..device import torch_dtype
 from ..grid.depth import set_depth
 from ..grid.grid import Grid
 from ..ops import stencil as st
+from .gls import initial_mix
+from .my25 import initial_mix_my25
 
 
 class Forcing(NamedTuple):
@@ -54,14 +56,15 @@ class State(NamedTuple):
     z_w: torch.Tensor       # (N+1, Mj, Li)
     Hz: torch.Tensor        # (N, Mj, Li)
 
+    # GLS/MY2.5 turbulence state (core/gls.py MixState), None otherwise
+    mix: Any = None
+
 
 def initial_state(cfg: ModelConfig, grid: Grid, *, zeta=None, u=None,
                   v=None, t=None, time0: float = 0.0) -> State:
     """Cold-start state (initial.F): ubar/vbar are the vertical means
-    of u/v; both AB history levels start at zero."""
-    if cfg.mixing.vmix in ("gls", "my25"):
-        raise NotImplementedError(
-            "GLS/MY2.5 closure state: the GLS slice (last)")
+    of u/v; both AB history levels start at zero.  Under GLS or MY2.5
+    the turbulence state starts at the closure's minimum levels."""
     dtype = torch_dtype(cfg.dtype)
     dev = grid.device
     Mj, Li = cfg.shape2d
@@ -83,6 +86,11 @@ def initial_state(cfg: ModelConfig, grid: Grid, *, zeta=None, u=None,
     vbar = torch.sum(Hz_v * v, dim=0) / torch.sum(Hz_v, dim=0)
     zeros2 = torch.zeros((Mj, Li), dtype=dtype, device=dev)
     zeros3 = torch.zeros((N, Mj, Li), dtype=dtype, device=dev)
+    mix = None
+    if cfg.mixing.vmix == "gls":
+        mix = initial_mix(cfg, dev)
+    elif cfg.mixing.vmix == "my25":
+        mix = initial_mix_my25(cfg, dev)
     return State(
         time=float(time0), iic=0,
         zeta=zeta, ubar=ubar, vbar=vbar,
@@ -91,4 +99,4 @@ def initial_state(cfg: ModelConfig, grid: Grid, *, zeta=None, u=None,
         ru_prev2=zeros3, rv_prev2=zeros3,
         ru0_prev=zeros2, rv0_prev=zeros2,
         ru0_prev2=zeros2, rv0_prev2=zeros2,
-        z_r=z_r, z_w=z_w, Hz=Hz)
+        z_r=z_r, z_w=z_w, Hz=Hz, mix=mix)

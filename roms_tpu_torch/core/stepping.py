@@ -5,11 +5,11 @@ One `step` = prep (mass fluxes, EOS, forcing, bottom drag, vertical
 mixing, omega), the predictor stage (pre_step3d, pressure gradient,
 RHS, horizontal mixing), the fast barotropic loop, new depths, then the
 3D correctors.  The port carries the branches of the closed-basin
-DOUBLE_GYRE class, the EW-periodic UPWELLING channel and the BENCHMARK
-full physics (JM95, COARE bulk fluxes that take the ocean surface state,
-LMD-KPP with the solar source and nonlocal transport, MIX_GEO_TS,
-quadratic drag); every other hook raises NotImplementedError naming the
-slice that brings it.
+DOUBLE_GYRE class, the EW-periodic UPWELLING channel with the analytic,
+GLS or MY2.5 vertical closure, and the BENCHMARK full physics (JM95,
+COARE bulk fluxes that take the ocean surface state, LMD-KPP with the
+solar source and nonlocal transport, MIX_GEO_TS, quadratic drag); every
+other hook raises NotImplementedError naming the slice that brings it.
 
 Kernels: `Model(..., use_kernels=True)` (the default) sends the kernel
 entry points through their wrappers, which launch the CUDA kernels on
@@ -32,7 +32,9 @@ from ..grid.depth import set_depth, set_massflux
 from ..grid.grid import Grid
 from ..ops import flux as flux_op, prep as prep_op
 from ..ops import prsgrd as prsgrd_op, stencil as st
-from . import hmix, omega as omega_mod, prsgrd, rhs3d, set_vbc
+from ..ops.rho import rho_eos_plain
+from . import gls as gls_mod, hmix, my25 as my25_mod
+from . import omega as omega_mod, prsgrd, rhs3d, set_vbc
 from .pre_step3d import pre_step3d
 from .rho_eos import rho_eos
 from .state import State
@@ -56,6 +58,33 @@ _LATER = {
 }
 
 
+def make_bvf_mix(cfg: ModelConfig, bvf_nu0: float = 1.0e-7,
+                 bvf_nu0c: float = 1.0, bvf_numin: float = 3.0e-5,
+                 bvf_numax: float = 4.0e-4):
+    """Brunt-Vaisala-frequency mixing (bvf_mix.F:88-115,
+    mod_scalars.F:1883-1886 defaults):
+
+        bvf < 0  ->  convective value bvf_nu0c (1 m2/s)
+        bvf > 0  ->  clip(bvf_nu0 / sqrt(bvf), numin, numax)
+
+    computed diagnostically from the time-n stratification with the
+    plain EOS, as roms_tpu computes it with its jnp EOS."""
+    def vmix(state, grid, z_w):
+        bvf = rho_eos_plain(cfg, state.t, state.z_r, state.Hz, z_w)[4]
+        cff = bvf_nu0 / torch.sqrt(torch.clamp(bvf, min=1.0e-20))
+        stable = torch.clamp(cff, bvf_numin, bvf_numax)
+        Ak_i = torch.where(bvf < 0.0, torch.full_like(bvf, bvf_nu0c),
+                           torch.where(bvf == 0.0, torch.full_like(
+                               bvf, cfg.mixing.akv_bak), stable))
+        # interface array with background top/bottom rows
+        bak = torch.full_like(Ak_i[:1], cfg.mixing.akv_bak)
+        Akv = torch.cat([bak, Ak_i[1:-1], bak], dim=0)
+        Akt = torch.stack([Akv for _ in range(cfg.NAT)])
+        return Akv, Akt
+
+    return vmix
+
+
 def default_vmix(cfg: ModelConfig):
     """Constant background vertical mixing (mod_mixing defaults)."""
     def vmix(state, grid, z_w):
@@ -68,10 +97,6 @@ def default_vmix(cfg: ModelConfig):
 
 def _check_config(cfg: ModelConfig):
     m = cfg.mixing
-    if m.vmix in ("gls", "my25"):
-        raise NotImplementedError(
-            f"vertical closure '{m.vmix}': GLS/MY2.5 (ROADMAP Queue 1 "
-            "item 5)")
     if m.vmix == "lmd" and (m.bkpp or m.ddmix):
         raise NotImplementedError(
             "LMD_BKPP / LMD_DDMIX: ROADMAP Queue 1 item 5")
@@ -111,7 +136,7 @@ class Model:
     forcing_fn(time, sst, sss, rho_surf, use_kernels) -> Forcing
     (core/bulk_flux.make_bulk_forcing), which gets the Model's
     use_kernels; vmix_fn(state, grid, z_w) -> (Akv, Akt), unused under
-    LMD mixing.  The device is the grid's.
+    LMD, GLS and MY2.5 mixing.  The device is the grid's.
     """
 
     def __init__(self, cfg: ModelConfig, grid: Grid,
@@ -159,8 +184,8 @@ class Model:
             # fluxes need the top rho level first
             rho_surf = prep_op.surface_rho(cfg, state.t, z_r)
         else:
-            rho, _, rhoA, rhoS, _ = rho_eos(cfg, state.t, z_r, Hz, z_w,
-                                            use_kernels=kern)
+            rho, _, rhoA, rhoS, bvf = rho_eos(cfg, state.t, z_r, Hz, z_w,
+                                              use_kernels=kern)
             rho_surf = rho[-1]
         if self._forcing_takes_state:
             sss = state.t[1][-1] if cfg.NT > 1 \
@@ -172,7 +197,10 @@ class Model:
         bustr, bvstr = set_vbc.bottom_drag(cfg, grid, state.u, state.v,
                                            Hz, z_r, z_w)
         ghats_flux = None
-        if route == "prep":
+        use_gls = cfg.mixing.vmix in ("gls", "my25")
+        if use_gls:
+            Akv, Akt = state.mix.Akv, state.mix.Akt
+        elif route == "prep":
             (rho, _, rhoA, rhoS, Akv, Akt, ghats,
              _) = prep_op.prep_fused(cfg, grid, state.t, state.u, state.v,
                                      Hz, z_r, z_w, forcing,
@@ -210,6 +238,10 @@ class Model:
             use_kernels=kern)
         u_part, v_part, rufrc, rvfrc = hmix.uv3dmix4_s(
             cfg, grid, state.u, state.v, u_part, v_part, Hz, rufrc, rvfrc)
+        if use_gls:
+            # gls_prestep (main3d.F:634-636): AB2 advection of tke/psi
+            half = gls_mod.gls_prestep(cfg, grid, state.mix, Huon, Hvom, W,
+                                       Hz, iic)
 
         # ---- fast barotropic sub-cycle (main3d.F:810-918) ---------------
         avg, rufrc_eff, rvfrc_eff, _, _, _ = self.fast_loop(
@@ -226,6 +258,17 @@ class Model:
             iic, use_kernels=kern)
         W2 = (flux_op.omega if fused_flux else omega_mod.omega)(
             cfg, grid, Huon2, Hvom2, z_w2)
+        mix_new = state.mix
+        if use_gls:
+            # gls_corstep / my25_corstep (main3d.F:1019-1021) runs before
+            # step3d_t, so tracers diffuse with the new Akt
+            corstep = my25_mod.my25_corstep if cfg.mixing.vmix == "my25" \
+                else gls_mod.gls_corstep
+            mix_new = corstep(cfg, grid, state.mix, *half, state.u, state.v,
+                              Hz2, z_r2, z_w2, Huon2, Hvom2, W2, bvf,
+                              forcing.sustr, forcing.svstr, bustr, bvstr,
+                              use_kernels=kern)
+            Akt = mix_new.Akt
         tn = step3d_t(cfg, grid, t_half, t_part, Huon2, Hvom2, W2, Hz2,
                       Akt, use_kernels=kern)
 
@@ -237,7 +280,7 @@ class Model:
             ru_prev2=state.ru_prev, rv_prev2=state.rv_prev,
             ru0_prev=rufrc_eff, rv0_prev=rvfrc_eff,
             ru0_prev2=state.ru0_prev, rv0_prev2=state.rv0_prev,
-            z_r=z_r2, z_w=z_w2, Hz=Hz2)
+            z_r=z_r2, z_w=z_w2, Hz=Hz2, mix=mix_new)
 
     def step_diag(self, state: State):
         """DIAGNOSTICS_TS budgets (step_impl collect_diag)."""

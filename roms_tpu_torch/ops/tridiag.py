@@ -1,17 +1,40 @@
-"""Batched tridiagonal solves along k (port of roms_tpu/ops/tridiag.py).
+"""Kernel 17: the batched vertical tridiagonal solve (csrc/tridiag.cu),
+and the spline flux solve behind kernels 4 and 5.
 
-Plain PyTorch Thomas sweeps over whole horizontal planes, arrays
-[k, ...] with k axis 0.  These are the plain versions behind the
-spline solves of kernels 4 and 5 (ops/uv.py, ops/vdiff.py; the shared
-CUDA sweep is csrc/spline_dq.cuh).
+Replaces roms_tpu/ops/pallas_tridiag.py `tridiag_solve_pallas`, which
+roms_tpu's dispatcher (roms_tpu/ops/tridiag.py:32-57) runs for every
+3-D solve with N <= 128 on one TPU; the GLS and MY2.5 closures reach it
+four times a step (core/gls.py, core/my25.py).  Arrays are [k, ...]
+with k axis 0.
+
+`tridiag_plain` is the plain PyTorch Thomas sweep over whole horizontal
+planes, with the Pallas kernel's association (_thomas_kernel,
+pallas_tridiag.py:33-57).  `spline_flux_solve` stays on it: it is the
+plain version of kernels 4 and 5 (ops/uv.py, ops/vdiff.py; their CUDA
+sweep is csrc/spline_dq.cuh), so `Model(use_kernels=False)` never
+launches kernel 17.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _lib
 
-def tridiag_solve(lower, diag, upper, rhs):
+# roms_tpu's call-site bound on the depth of a kernel solve
+# (roms_tpu/ops/tridiag.py:55); csrc/tridiag.cu kNmax
+NMAX = 128
+
+
+def covers(rhs) -> bool:
+    """Kernel 17's class, roms_tpu's gate for the Pallas solve
+    (ops/tridiag.py:51-57): a 3-D operand of at most NMAX levels.  The
+    closures decide from it at their call sites (core/gls.py
+    `closure_solve`); the wrapper refuses what it does not cover."""
+    return rhs.dim() == 3 and rhs.shape[0] <= NMAX
+
+
+def tridiag_plain(lower, diag, upper, rhs):
     """Thomas algorithm along axis 0: lower[k] multiplies x[k-1]
     (lower[0] ignored), upper[k] multiplies x[k+1] (upper[-1]
     ignored)."""
@@ -33,6 +56,31 @@ def tridiag_solve(lower, diag, upper, rhs):
     return x
 
 
+def tridiag_solve(lower, diag, upper, rhs, use_kernels: bool = True):
+    """Wrapper: the kernel on CUDA tensors, raising where it cannot
+    launch (operands outside `covers`); the plain sweep on CPU tensors
+    or when `use_kernels` is False."""
+    if not use_kernels or rhs.device.type == "cpu":
+        return tridiag_plain(lower, diag, upper, rhs)
+    if not covers(rhs):
+        raise ValueError(f"tridiag: operand of shape {tuple(rhs.shape)} "
+                         f"is not 3-D with at most {NMAX} levels")
+    (lower, diag, upper, rhs), sfx, stream = _lib.prepare(
+        "tridiag", [lower, diag, upper, rhs])
+    N, Mj, Li = rhs.shape
+    for t in (lower, diag, upper):
+        if t.shape != rhs.shape:
+            raise ValueError("tridiag: inconsistent shapes")
+    out = torch.empty_like(rhs)
+    P, I = _lib.P, _lib.I
+    fn = _lib.func(f"roms_tridiag_{sfx}", [P] * 5 + [I] * 3 + [P])
+    rc = fn(*[_lib.ptr(x) for x in (lower, diag, upper, rhs, out)],
+            N, Mj, Li, P(stream))
+    _lib.launches["tridiag"] += 1
+    _lib.check(rc, "tridiag")
+    return out
+
+
 def spline_flux_solve(Hzk, AK, q, dt):
     """Implicit vertical-flux solve with parabolic-spline
     reconstruction (SPLINES_VVISC / SPLINES_VDIFF; step3d_uv.F:393-437).
@@ -49,7 +97,7 @@ def spline_flux_solve(Hzk, AK, q, dt):
     CF = sixth * Hzk[1:] - dt * AK[2:] * oHz[1:]
     BC = (third * (Hzk[:-1] + Hzk[1:])
           + dt * AK[1:-1] * (oHz[:-1] + oHz[1:]))
-    DC_int = tridiag_solve(FC, BC, CF, q[1:] - q[:-1])
+    DC_int = tridiag_plain(FC, BC, CF, q[1:] - q[:-1])
     zeros = torch.zeros_like(q[:1])
     flux = AK * torch.cat([zeros, DC_int, zeros], dim=0)
     return dt * oHz * (flux[1:] - flux[:-1])

@@ -24,11 +24,12 @@ from roms_tpu_torch.ops import _lib, tadv  # noqa: E402
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
-# physics and KPP alone
+# physics and KPP alone, and the tridiagonal solve of the GLS channel
 CASES = [("double_gyre", n) for n in cs.SLICE1] + [
     ("upwelling", n) for n in cs.SLICE2] + [
     ("benchmark", n) for n in cs.APPS["benchmark"]["entries"]
-    + cs.APPS["benchmark"]["off_path"]]
+    + cs.APPS["benchmark"]["off_path"]] + [
+    ("upwelling_gls", n) for n in cs.APPS["upwelling_gls"]["checked"]]
 
 
 def _need_card():
@@ -57,3 +58,35 @@ def test_wrapper_on_cpu_tensors_takes_the_plain_version():
     out = tadv.corrector(cfg, grid, s.t, s.Hz * s.t, s.u, s.v, W, s.Hz)
     assert out.device.type == "cpu"
     assert _lib.launches == before
+
+
+@pytest.mark.parametrize("app", ["upwelling_gls", "upwelling_my25"])
+def test_closure_step_launches_the_solve_four_times(app):
+    """A GLS or MY2.5 step on the card solves its four systems with the
+    kernel, each within float64 1e-12 of the plain sweep; the plain
+    step launches nothing."""
+    _need_card()
+    systems = cs.closure_systems(torch, app, 12, 14, 8, "float64")
+    assert len(systems) == 4
+    for args in systems:
+        rel, _ = cs.compare(torch, "tridiag", args, "float64")
+        assert rel <= cs.TOL["float64"], rel
+    for kern, want in ((True, 4), (False, 0)):
+        model, s = cs.make_model(torch, app, 12, 14, 8, "float64", kern,
+                                 300.0, True)
+        before = _lib.launches["tridiag"]
+        model.step(s)
+        assert _lib.launches["tridiag"] == before + want
+
+
+@pytest.mark.parametrize("shape", [(129, 3, 4), (4, 2, 3, 4)])
+def test_tridiag_wrapper_raises_outside_its_class(shape):
+    """On CUDA tensors the tridiagonal wrapper launches its kernel or
+    raises: deeper than 128 levels or stacked 4-D systems raise."""
+    _need_card()
+    from roms_tpu_torch.ops import tridiag
+    x = torch.ones(shape, device="cuda", dtype=torch.float64)
+    before = _lib.launches["tridiag"]
+    with pytest.raises(ValueError, match="tridiag"):
+        tridiag.tridiag_solve(x, x, x, x)
+    assert _lib.launches["tridiag"] == before

@@ -82,3 +82,43 @@ def test_convert_hands_over_exact_copies(both):
         assert np.array_equal(t2n(getattr(tstate, name)),
                               np.asarray(getattr(state, name))), name
     assert tgrid.hc == grid.hc and tstate.iic == 0
+
+
+def test_convert_carries_the_gls_mix_state():
+    """A roms_tpu GLS MixState crosses to the port and back unchanged;
+    the sediment, BBL and ice slots still raise."""
+    import jax.numpy as jnp
+
+    from roms_tpu.core import gls as jgls
+    from roms_tpu.functionals import upwelling
+    from roms_tpu_torch import convert
+    from roms_tpu_torch.core.gls import MixState
+
+    cfg = upwelling.make_config(Lm=6, Mm=8, N=4, dtype="float64")
+    cfg = cfg.replace(mixing=dataclasses.replace(
+        cfg.mixing, vmix="gls", gls_stab="kantha_clayson"))
+    grid = upwelling.make_grid(cfg)
+    state = upwelling.make_initial(cfg, grid)
+    rng = np.random.default_rng(8)
+    mix = jgls.MixState(*[jnp.asarray(rng.uniform(1e-8, 1e-2, x.shape))
+                          for x in state.mix])
+    state = state._replace(mix=mix)
+    tcfg, _, tstate = port(cfg, grid, state)
+    assert tuple(MixState._fields) == tuple(jgls.MixState._fields)
+    for name in MixState._fields:
+        got = getattr(tstate.mix, name)
+        assert got.dtype == torch.float64 and got.device.type == "cpu"
+        assert np.array_equal(t2n(got), np.asarray(getattr(mix, name)))
+    back = jgls.MixState(*[jnp.asarray(t2n(x)) for x in tstate.mix])
+    for r, b in zip(mix, back):
+        assert np.array_equal(np.asarray(r), np.asarray(b))
+    again = convert.mix_from_dict(
+        {k: np.asarray(v) for k, v in mix._asdict().items()}, tcfg,
+        device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(again, tstate.mix))
+    for slot in ("sed", "bbl", "ice"):
+        d = {n: np.asarray(getattr(state, n)) for n in STATE_FIELDS
+             + ["time", "iic"]}
+        d[slot] = np.zeros(1)
+        with pytest.raises(NotImplementedError, match=slot):
+            convert.state_from_dict(d, tcfg, device="cpu")

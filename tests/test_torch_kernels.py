@@ -190,13 +190,20 @@ def test_spline_vdiff_plain(case):
 def _fired(cfg, bulk=False):
     """roms_tpu's kernels on one TPU; `bulk`: the forcing function takes
     the ocean surface state (make_bulk_forcing), where use_pallas_kpp
-    sends the bulk fluxes through their kernel."""
+    sends the bulk fluxes through their kernel.  The tridiagonal kernel
+    fires where the step solves a 3-D system (ops/tridiag.py:51-57): the
+    GLS/MY2.5 closures, the jnp LMD route's spline shear (lmd.py:145)
+    and OMEGA_IMPLICIT's upwind solves (step3d_uv.py:98)."""
     from roms_tpu.ops import (pallas_flux, pallas_hmix, pallas_kpp,
                               pallas_prep, pallas_prsgrd, pallas_step2d,
                               pallas_uvmix)
+    from roms_tpu.ops.kernel_gate import dtype_supported, pallas_enabled
     m = cfg.mixing
     kpp_class = m.vmix == "lmd" and not m.bkpp and not m.ddmix
     use_prep = pallas_prep.use_pallas_prep(cfg) and kpp_class
+    jnp_lmd = m.vmix == "lmd" and not use_prep and not (
+        kpp_class and pallas_kpp.use_pallas_kpp(cfg))
+    solve3d = m.vmix in ("gls", "my25") or jnp_lmd or cfg.omega_implicit
     gates = {
         "flux": pallas_flux.use_pallas_flux(cfg),
         "prep": use_prep,
@@ -220,6 +227,8 @@ def _fired(cfg, bulk=False):
         "uv": pallas_uv.use_pallas_uv(cfg),
         "vdiff": cfg.mixing.splines_vdiff
         and pallas_vdiff.use_pallas_vdiff(cfg),
+        "tridiag": solve3d and pallas_enabled()
+        and dtype_supported(cfg.dtype) and cfg.N - 1 <= 128,
     }
     return {k for k, on in gates.items() if on}
 
@@ -241,8 +250,8 @@ def test_slice_covers_the_tpu_kernels_of_double_gyre(monkeypatch):
 
 def _port_fired(cfg, bulk=False):
     """The port's kernel classes (each ops module's `covers`, the step's
-    LMD-KPP route), as the set of roms_tpu kernel names they stand
-    for."""
+    LMD-KPP route, the closures' call-site gate on their solves), as the
+    set of roms_tpu kernel names they stand for."""
     from roms_tpu_torch import convert
     from roms_tpu_torch.core.stepping import kpp_route
     from roms_tpu_torch.ops import (bulk as tbulk, flux, hmix as thmix,
@@ -261,7 +270,32 @@ def _port_fired(cfg, bulk=False):
         fired.add("rho")
     if bulk and tbulk.covers(tcfg):
         fired.add("bulk")
+    if tcfg.mixing.vmix in ("gls", "my25") and _closure_reaches_kernel(
+            tcfg):
+        fired.add("tridiag")
     return fired
+
+
+def _closure_reaches_kernel(tcfg):
+    """Whether the closures' call-site gate (core/gls.py closure_solve)
+    hands a system of the N-1 interior interfaces to kernel 17's
+    wrapper, observed on meta tensors with the wrapper replaced by a
+    recorder."""
+    from roms_tpu_torch.core import gls as tgls
+    from roms_tpu_torch.ops import tridiag
+    seen = []
+    solve = tridiag.tridiag_solve
+
+    def spy(lower, diag, upper, rhs, use_kernels=True):
+        seen.append(rhs.shape)
+        return rhs
+    tridiag.tridiag_solve = spy
+    try:
+        x = torch.empty((tcfg.N - 1,) + tcfg.shape2d, device="meta")
+        tgls.closure_solve(x, x, x, x)
+    finally:
+        tridiag.tridiag_solve = solve
+    return bool(seen)
 
 
 def _gate_configs():
@@ -277,6 +311,8 @@ def _gate_configs():
 
     def mixing(cfg, **kw):
         return cfg.replace(mixing=dataclasses.replace(cfg.mixing, **kw))
+
+    up_gls = mixing(up, vmix="gls", gls_stab="kantha_clayson")
 
     cfgs = {
         "double_gyre": ia.double_gyre_config(Lm=512, Mm=1024, N=30,
@@ -295,6 +331,10 @@ def _gate_configs():
         "visc2_zero": up.replace(mixing=up.mixing.__class__(
             **{**up.mixing.__dict__, "visc2": 0.0})),
         "wetdry": up.replace(wetdry=True),
+        "upwelling_gls": up_gls,
+        "upwelling_my25": mixing(up, vmix="my25"),
+        "upwelling_gls_ns_periodic": up_gls.replace(
+            bc=BoundaryConfig.uniform(LBC.ns_periodic())),
     }
     out = {k: (c, False) for k, c in cfgs.items()}
     out.update({
@@ -313,13 +353,20 @@ def _gate_configs():
 
 BENCHMARK3_FULL = {"flux", "prep", "tadv", "prsgrd", "rhs3d", "uvmix",
                    "fast_loop_pallas_res", "uv", "vdiff", "hmix", "bulk"}
+# roms_tpu reaches the tridiagonal kernel on these through routes the
+# port refuses (OMEGA_IMPLICIT's upwind solves, the jnp LMD route of
+# LMD_BKPP/LMD_DDMIX): the port's Model raises there, and has no such
+# solve site
+REFUSED_TRIDIAG_ROUTES = {"omega_implicit", "benchmark3_bkpp",
+                          "benchmark3_ddmix"}
 
 
 @pytest.mark.parametrize("name", list(_gate_configs()))
 def test_port_gates_match_roms_tpu(monkeypatch, name):
     """On every configuration the port's kernel classes fire exactly the
     kernels roms_tpu's float32 step runs on one TPU: the closed basin,
-    the channel at the published and the full width (all nine),
+    the channel at the published and the full width (all nine), with
+    the GLS and MY2.5 closures (ten, the tridiagonal solve added),
     BENCHMARK3 with the full physics (eleven) and its light variant
     (ten), and configurations just outside each class."""
     for var in [v for v in os.environ if v.startswith("ROMS_TPU_")]:
@@ -328,8 +375,21 @@ def test_port_gates_match_roms_tpu(monkeypatch, name):
     monkeypatch.setattr(jax, "device_count", lambda: 1)
     cfg, bulk = _gate_configs()[name]
     fired = _fired(cfg, bulk)
+    if name in REFUSED_TRIDIAG_ROUTES:
+        from roms_tpu_torch import convert
+        from roms_tpu_torch.core.stepping import _check_config
+        from torch_port_util import cfg_dict
+        assert "tridiag" in fired
+        fired = fired - {"tridiag"}
+        with pytest.raises(NotImplementedError):
+            _check_config(convert.config_from_dict(cfg_dict(cfg)))
     assert _port_fired(cfg, bulk) == fired
-    if name.startswith("upwelling"):
+    if name in ("upwelling_gls", "upwelling_my25"):
+        assert fired == _fired(_gate_configs()["upwelling"][0]) | {
+            "tridiag"}
+    elif name == "upwelling_gls_ns_periodic":
+        assert fired == {"rho", "vdiff", "tridiag"}
+    elif name.startswith("upwelling"):
         assert len(fired) == 9
     if name == "benchmark3_full_physics":
         assert fired == BENCHMARK3_FULL

@@ -21,9 +21,15 @@ def grid_dict(grid):
 
 
 def state_dict(state):
-    return {n: (None if getattr(state, n) is None
-                else np.asarray(getattr(state, n)))
-            for n in state._fields}
+    """State fields as numpy arrays; a GLS/MY2.5 `mix` as a dict of
+    its fields."""
+    def plain(x):
+        if x is None:
+            return None
+        if hasattr(x, "_asdict"):
+            return {k: np.asarray(v) for k, v in x._asdict().items()}
+        return np.asarray(x)
+    return {n: plain(getattr(state, n)) for n in state._fields}
 
 
 def port(cfg, grid, state=None):
