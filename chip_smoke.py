@@ -21,13 +21,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      multiple of the block size and at the full width; the batched
      tridiagonal solve of the GLS/MY2.5 path on seeded diagonally
      dominant systems and on the four real systems of a GLS and of a
-     MY2.5 step at the same sizes;
+     MY2.5 step at the same sizes; the j-blocked fast loop (kernel 12) on
+     the UPWELLING and BENCHMARK3 states (the latter's nfast = 29 odd),
+     float64 rel <= 1e-11, with its difference from the resident fast
+     loop (kernel 11) on the same inputs;
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
      (Kantha-Clayson) and the MY2.5 closure (the turbulence fields too)
      and BENCHMARK full physics Lm=64, Mm=32, N=16, all but the first
-     from a zonally varying state;
+     from a zonally varying state; UPWELLING (analytic and GLS) and
+     BENCHMARK again with `Model(fast_loop="blocked")`;
   4. full width, float32, 10 steps after a warm-up step, ms/step from
      CUDA events, each entry point's launches in the run and no plain
      version called: DOUBLE_GYRE Lm=512, Mm=1024, N=30 (dt=240 s; finite
@@ -38,7 +42,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      or above the closure's floors) and BENCHMARK3 full physics
      Lm=2048, Mm=256, N=30 (dt = 150 s, ndtfast = 20 as published;
      finite fields, interior volume, the KPP boundary layer inside the
-     water column), then each kernel's time at its path's full-width
+     water column); BENCHMARK3 and UPWELLING again with the j-blocked
+     fast loop (15 and 21 launches of kernel 12 a step, none of kernel
+     11) and the fast loop's own time inside the step under each engine;
+     then each kernel's time at its path's full-width
      shapes next to its plain version, its bound and, for the
      tridiagonal solve, torch.linalg.solve on the same systems; after
      the checks, three more 10-step windows of each app, timed by CUDA
@@ -58,9 +65,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12            # H100 SXM float32, non-tensor
 TOL = {"float64": 1e-12, "float32": 1e-5}
-# the fast loop's float64 bound: 2 x 42 substeps, the reference's own
-# bound for this engine (tests/test_pallas_step2d.py:56)
-TOL_F64 = {"fast_loop_res": 1e-11}
+# the fast loops' float64 bound: 2 x 42 substeps, the reference's own
+# bound for its engine (tests/test_pallas_step2d.py:56)
+TOL_F64 = {"fast_loop_res": 1e-11, "fast_loop_blocked": 1e-11}
 DEVICE = "cuda"
 FAILURES = []       # kernel-vs-plain excesses, reported at phase end
 CARD = ""           # nvidia-smi's name and power limit
@@ -105,18 +112,21 @@ def main():
     print(_lib.ptxas_report(), flush=True)
     _lib.lib()
 
+    full = [app for app in APPS if APPS[app]["full"]]
     if "--profile" in sys.argv[1:]:
-        for app in APPS:
+        for app in full:
             profile_step(torch, app)
         return 0
     kernel_phase_checks(torch)
     for app in APPS:
         slice_parity(torch, app)
-    counts = {app: full_width(torch, app) for app in APPS}
+    counts = {app: full_width(torch, app) for app in full}
     # one row per entry point, at the newest path that times it (the GLS
-    # path times only the solve it adds to the channel's kernels)
+    # path times only the solve it adds to the channel's kernels, the
+    # blocked paths only kernel 12, whose row is BENCHMARK3's)
     table = []
-    for app in ("upwelling_gls", "benchmark", "upwelling", "double_gyre"):
+    for app in ("benchmark_blocked", "upwelling_blocked", "upwelling_gls",
+                "benchmark", "upwelling", "double_gyre"):
         rows = kernel_table(torch, app, counts[app])
         done = {row["name"] for row in table}
         table += [row for row in rows if row["name"] not in done]
@@ -167,6 +177,8 @@ SOURCES = {
                     "roms_tpu/ops/pallas_hmix.py:185"),
     "tridiag": ("roms_tpu_torch/csrc/tridiag.cu",
                 "roms_tpu/ops/pallas_tridiag.py:60"),
+    "fast_loop_blocked": ("roms_tpu_torch/csrc/step2d_blocked.cu",
+                          "roms_tpu/ops/pallas_step2d.py:600"),
 }
 SLICE1 = list(SOURCES)[:7]
 SLICE2 = list(SOURCES)[:12]
@@ -180,7 +192,8 @@ FLOPS_PER_POINT = {"rho_eos": 12, "tadv_predictor": 90,
                    "flux_omega": 15, "omega": 7, "prsgrd32": 130,
                    "uv3dmix2_s": 60, "fast_loop_res": 470,
                    "bulk_flux": 700, "kpp": 160, "prep": 230,
-                   "rot_div_geo": 85, "tridiag": 9}
+                   "rot_div_geo": 85, "tridiag": 9,
+                   "fast_loop_blocked": 470}
 # (Mj, Li) planes a fast-loop substep after the first reads or writes,
 # each counted once per phase (csrc/step2d.cu: flux 18 + 12, zeta 10 +
 # 11, momentum 37 + 39), for the per-substep traffic line
@@ -198,8 +211,8 @@ APPS = {
     # the path runs the channel kernels with kernel 15 in place of rho
     # and kernels 13 and 16; KPP alone (kernel 14, the same column
     # without the EOS) is off it, and is checked and timed at its shapes
-    "benchmark": dict(entries=[n for n in SOURCES
-                               if n not in ("rho_eos", "kpp", "tridiag")],
+    "benchmark": dict(entries=[n for n in SOURCES if n not in (
+                          "rho_eos", "kpp", "tridiag", "fast_loop_blocked")],
                       off_path=["kpp"], dt=150.0,
                       kernel_sizes=((201, 101, 30), (2048, 256, 30)),
                       parity=(64, 32, 16, 150.0),
@@ -220,10 +233,31 @@ APPS = {
                            parity=(48, 64, 16, 300.0),
                            full=(512, 1024, 16), mixing=dict(vmix="my25")),
 }
+# the channel paths with the j-blocked fast loop (kernel 12) in place of
+# the resident one: one launch per chunk of chunk_schedule(nfast), 21 a
+# step at UPWELLING's nfast = 42 and 15 at BENCHMARK3's nfast = 29; the
+# other entry points are checked under their default apps
+for _app, _launches, _alone in (("upwelling", 21, True),
+                                ("upwelling_gls", 21, False),
+                                ("benchmark", 15, True)):
+    # the GLS channel only for its parity: its fast loop inputs and full
+    # width are the analytic channel's
+    _spec = APPS[_app]
+    APPS[_app + "_blocked"] = dict(
+        _spec, base=_app, fast_loop="blocked", checked=["fast_loop_blocked"],
+        off_path=[], full=_spec["full"] if _alone else None,
+        kernel_sizes=_spec["kernel_sizes"] if _alone else (),
+        entries=[n for n in _spec["entries"] if n != "fast_loop_res"]
+        + ["fast_loop_blocked"],
+        per_step=dict(_spec.get("per_step", {}),
+                      fast_loop_blocked=_launches))
+BLOCKED = [a for a in APPS if a.endswith("_blocked")]
 
 
 def app_setup(app, Lm, Mm, N, dtype, dt):
     """(cfg, grid, initial state, model kwargs) of an application."""
+    closure = APPS[app].get("mixing")
+    app = APPS[app].get("base", app)
     if app == "double_gyre":
         from roms_tpu_torch.functionals import idealized as ia
         cfg = ia.double_gyre_config(Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=30,
@@ -240,7 +274,6 @@ def app_setup(app, Lm, Mm, N, dtype, dt):
             forcing_fn=bm.make_bulk_forcing_fn(cfg, grid))
     from roms_tpu_torch.functionals import upwelling as up
     cfg = up.make_config(Lm=Lm, Mm=Mm, N=N, dt=dt, dtype=dtype)
-    closure = APPS[app].get("mixing")
     if closure:
         cfg = cfg.replace(mixing=dataclasses.replace(cfg.mixing, **closure))
     grid = up.make_grid(cfg, device=DEVICE)
@@ -374,7 +407,7 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
         args = (cfg, grid, u, v, u * Hz, v * Hz, Hz, rufrc, rvfrc)
         return args, [u, v, Hz, u * Hz, v * Hz, rufrc, rvfrc] + [
             getattr(grid, n) for n in METRICS]
-    if name == "fast_loop_res":
+    if name in ("fast_loop_res", "fast_loop_blocked"):
         from roms_tpu_torch.core.weights import power_law_weights
         from roms_tpu_torch.ops.step2d import STATICS
         nfast, w1, w2 = power_law_weights(cfg.ndtfast)
@@ -428,6 +461,8 @@ def entry_fns(name):
         "uv3dmix2_s": (uvmix.uv3dmix2_s, uvmix.uv3dmix2_s_plain),
         "fast_loop_res": (step2d.fast_loop_res,
                           step2d.fast_loop_res_plain),
+        "fast_loop_blocked": (step2d.fast_loop_blocked,
+                              step2d.fast_loop_res_plain),
         "bulk_flux": (bulk.bulk_flux, bulk.bulk_flux_plain),
         "kpp": (kpp.kpp, kpp.kpp_plain),
         "prep": (prep.prep, prep.prep_plain),
@@ -501,13 +536,18 @@ def kernel_phase_checks(torch):
                         spec.get("off_path", []):
                     iics = (0, 1, 5) if name in (
                         "tadv_predictor", "uv_solve") else (
-                        (0, 5) if name == "fast_loop_res" else (5,))
+                        (0, 5) if name.startswith("fast_loop") else (5,))
                     for iic in iics:
                         args, _ = entry_inputs(torch, name, *env, iic)
                         rel, abs_err = compare(torch, name, args, dtype)
                         print(f"kernel {app:11s} {name:15s} {dtype} N={N} "
                               f"Mj={Mm + 2} Li={Lm + 2} iic={iic}: max rel "
                               f"{rel:.3e} max abs {abs_err:.3e}", flush=True)
+                        if name == "fast_loop_blocked":
+                            print(f"  kernel 12 vs kernel 11 on the same "
+                                  f"inputs (nfast={args[2]}): max rel "
+                                  f"{engine_diff(torch, args):.3e}",
+                                  flush=True)
                 if app == "double_gyre":
                     # the rho kernel's JM95 branch (off both paths)
                     args, _ = entry_inputs(torch, "rho_eos", *env, 5)
@@ -546,6 +586,16 @@ def kernel_phase_checks(torch):
     if FAILURES:
         fail("kernel phase:\n  " + "\n  ".join(FAILURES))
     _lib.reset_launches()
+
+
+def engine_diff(torch, args):
+    """Max relative difference of the j-blocked fast loop from the
+    resident one on the same inputs, over the 16 carry fields."""
+    from roms_tpu_torch.ops import step2d
+    a = outputs(step2d.fast_loop_blocked(*args))
+    b = outputs(step2d.fast_loop_res(*args))
+    return max(float((x - y).abs().max() / (y.abs().max() + 1e-300))
+               for x, y in zip(a, b))
 
 
 def closure_systems(torch, app, Lm, Mm, N, dtype):
@@ -590,7 +640,8 @@ def make_model(torch, app, Lm, Mm, N, dtype, use_kernels, dt, perturb):
         s = initial_state(cfg, grid, u=0.05 * rnd(*shp3) * grid.umask,
                           v=0.05 * rnd(*shp3) * grid.vmask,
                           t=s.t + 0.1 * rnd(*s.t.shape))
-    return Model(cfg, grid, use_kernels=use_kernels, **kw), s
+    return Model(cfg, grid, use_kernels=use_kernels,
+                 fast_loop=APPS[app].get("fast_loop", "resident"), **kw), s
 
 
 def slice_parity(torch, app):
@@ -719,7 +770,7 @@ def full_width(torch, app):
     # float32 roundoff: the interior mean stays within eps32*max|zeta|
     if not abs(vol) <= 1.2e-7 * zmax:
         fail(f"{app}: interior volume not conserved to float32 roundoff")
-    if app == "benchmark":
+    if APPS[app].get("base", app) == "benchmark":
         # the boundary layer of the last state lies in the water column
         from roms_tpu_torch.ops import prep
         from roms_tpu_torch.ops.prep import surface_rho
@@ -746,7 +797,47 @@ def full_width(torch, app):
         if not xu <= 1e-5 * zmax:
             fail("upwelling: zeta lost its x-uniformity")
     timing_windows(torch, app, model, s, nsteps)
+    if APPS[app].get("fast_loop") == "blocked":
+        engine_split(torch, app, model, s)
     return counts
+
+
+def engine_split(torch, app, model, s, nsteps=3):
+    """The fast loop's own time inside the step under each engine, in
+    turns (resident, blocked, blocked, resident): CUDA events around the
+    model's fast loop over `nsteps` steps, beside the step's time."""
+    from roms_tpu_torch.core.step2d import make_fast_loop
+    from roms_tpu_torch.core.weights import power_law_weights
+    nfast, w1, w2 = power_law_weights(model.cfg.ndtfast)
+    loops = {"blocked": model.fast_loop,
+             "resident": make_fast_loop(model.cfg, nfast, w1, w2,
+                                        engine="resident")}
+    for engine in ("resident", "blocked", "blocked", "resident"):
+        inner = loops[engine]
+        marks = []
+
+        def timed(*args, _inner=inner):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = _inner(*args)
+            b.record()
+            marks.append((a, b))
+            return out
+        model.fast_loop = timed
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        s = model.run(s, nsteps)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / nsteps
+        fl = sum(a.elapsed_time(b) for a, b in marks) / nsteps
+        print(f"{app} {engine:8s} engine: step {step_ms:.3f} ms, fast loop "
+              f"{fl:.3f} ms ({nfast} substeps), rest {step_ms - fl:.3f} ms "
+              f"[{CARD}]", flush=True)
+    model.fast_loop = loops["blocked"]
 
 
 def timing_windows(torch, app, model, s, nsteps, windows=3):
@@ -847,7 +938,7 @@ def kernel_table(torch, app, counts):
         byts = nbytes(ins) + nbytes(outs)
         npts = outs[0].numel()
         flops = FLOPS_PER_POINT[name] * npts
-        if name == "fast_loop_res":
+        if name.startswith("fast_loop"):
             flops *= args[2]
         t_bytes = 1e3 * byts / HBM_BYTES_PER_S
         t_ops = 1e3 * flops / FP32_FLOPS
@@ -883,6 +974,17 @@ def kernel_table(torch, app, counts):
             print(f"{app} fast_loop_res per substep: "
                   f"{ms / args[2]:.4f} ms, {sub / 1e6:.1f} MB touched once "
                   f"per phase -> {1e3 * sub / HBM_BYTES_PER_S:.4f} ms",
+                  flush=True)
+        if name == "fast_loop_blocked":
+            # its own design's floor: each launch reads the carry and the
+            # statics and writes the carry
+            from roms_tpu_torch.ops.step2d import chunk_schedule
+            nl = len(chunk_schedule(args[2]))
+            per = (2 * 16 + 28) * outs[0].numel() * outs[0].element_size()
+            print(f"{app} fast_loop_blocked per launch: {ms / nl:.4f} ms "
+                  f"over {nl} launches; 60 planes, {per / 1e6:.1f} MB a "
+                  f"launch -> {1e3 * per / HBM_BYTES_PER_S:.4f} ms, "
+                  f"{nl * 1e3 * per / HBM_BYTES_PER_S:.4f} ms a call",
                   flush=True)
         table.append(row)
     del env
@@ -950,7 +1052,7 @@ def profile_step(torch, app):
         "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
         "prsgrd_kernel", "uvmix_kernel", "flux_phase", "zeta_phase",
         "mom_phase", "bulk_kernel", "kpp_kernel", "rot_div_geo_kernel",
-        "tridiag_kernel"))]
+        "tridiag_kernel", "blocked_kernel"))]
     ours_us = sum(e.self_device_time_total for e in ours)
     print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "
           f"time in {sum(e.count for e in ours)} launches", flush=True)

@@ -2,12 +2,15 @@
 averaging (port of roms_tpu/core/step2d.py; step2d_LF_AM3.h:163-3058
 and the fast-loop orchestration of main3d.F:810-918).
 
-Two engines, switched as roms_tpu/core/step2d.py:592-616 switches
-them: on the EW-periodic channel class (ops/step2d.py `covers`) all
-substeps run in the fast-loop kernel (kernel 9), elsewhere, as on the
-closed DOUBLE_GYRE basin, as a Python loop of plain tensor code, which
-is also the kernel's plain version.  Either way `aux_pass` finishes the
-fast-time averages.
+Switched as roms_tpu/core/step2d.py:592-616 switches them: on the
+EW-periodic channel class (ops/step2d.py `covers`) all substeps run in a
+fast-loop kernel, elsewhere, as on the closed DOUBLE_GYRE basin, as a
+Python loop of plain tensor code, which is also the kernels' plain
+version.  The channel has two kernel engines, chosen by the caller
+(`engine`, Model's `fast_loop`): "resident" (kernel 11, roms_tpu's
+default) and "blocked" (kernel 12, the j-blocked engine roms_tpu runs
+under ROMS_TPU_PALLAS_STEP2D=1 with ROMS_TPU_FASTLOOP_RES=0).  Either
+way `aux_pass` finishes the fast-time averages.
 """
 
 from __future__ import annotations
@@ -391,21 +394,39 @@ def make_substeps(cfg: ModelConfig, nfast: int, w1, w2,
     return substeps
 
 
+ENGINES = ("resident", "blocked")
+
+
+def fast_loop_kernel(cfg: ModelConfig, engine: str = "resident",
+                     use_kernels: bool = True):
+    """The kernel wrapper the fast loop runs (ops/step2d.py
+    `fast_loop_res` or `fast_loop_blocked`), or None for the plain loop:
+    the engine's kernel inside the channel class, the plain loop outside
+    it whichever the engine, as roms_tpu takes jnp there."""
+    from ..ops import step2d as op
+    if engine not in ENGINES:
+        raise ValueError(f"fast loop engine {engine!r}: one of {ENGINES}")
+    if not (use_kernels and op.covers(cfg)):
+        return None
+    return op.fast_loop_res if engine == "resident" else op.fast_loop_blocked
+
+
 def make_fast_loop(cfg: ModelConfig, nfast: int, w1, w2,
-                   var_rho: bool = True, use_kernels: bool = True):
+                   var_rho: bool = True, use_kernels: bool = True,
+                   engine: str = "resident"):
     """Build the fast barotropic loop.
 
     nfast, w1, w2: from core.weights.power_law_weights (0-based numpy;
-    weight(1,i) of the reference is w1[i-1]).  Returns
+    weight(1,i) of the reference is w1[i-1]); engine: "resident" or
+    "blocked" (`fast_loop_kernel`).  Returns
     fast_loop(grid, zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA,
               ru0_prev, rv0_prev, ru0_prev2, rv0_prev2, iic)
       -> (FastAverages, rufrc_eff, rvfrc_eff, zeta, ubar, vbar)
     """
-    from ..ops import step2d as op
+    kernel = fast_loop_kernel(cfg, engine, use_kernels)
     substeps = make_substeps(cfg, nfast, w1, w2, var_rho)
     w1 = [float(x) for x in w1]
     w2 = [float(x) for x in w2]
-    kernel = use_kernels and op.covers(cfg)
 
     def aux_pass(grid, c: FastCarry):
         # auxiliary (nfast+1) predictor pass: final accumulation only
@@ -434,8 +455,8 @@ def make_fast_loop(cfg: ModelConfig, nfast: int, w1, w2,
                   ru0_prev, rv0_prev, ru0_prev2, rv0_prev2, iic: int):
         args = (zeta0, ubar0, vbar0, rufrc, rvfrc, rhoS, rhoA, ru0_prev,
                 rv0_prev, ru0_prev2, rv0_prev2, iic)
-        if kernel:
-            c = op.fast_loop_res(cfg, grid, nfast, w1, w2, var_rho, *args)
+        if kernel is not None:
+            c = kernel(cfg, grid, nfast, w1, w2, var_rho, *args)
         else:
             c = substeps(grid, *args)
         return aux_pass(grid, c)

@@ -136,12 +136,15 @@ class Model:
     forcing_fn(time, sst, sss, rho_surf, use_kernels) -> Forcing
     (core/bulk_flux.make_bulk_forcing), which gets the Model's
     use_kernels; vmix_fn(state, grid, z_w) -> (Akv, Akt), unused under
-    LMD, GLS and MY2.5 mixing.  The device is the grid's.
+    LMD, GLS and MY2.5 mixing.  The device is the grid's.  fast_loop:
+    the channel's fast-loop kernel engine, "resident" (kernel 11, the
+    default) or "blocked" (kernel 12; core/step2d.fast_loop_kernel).
     """
 
     def __init__(self, cfg: ModelConfig, grid: Grid,
                  forcing_fn: Callable, vmix_fn: Optional[Callable] = None,
-                 var_rho: bool = True, use_kernels: bool = True, **hooks):
+                 var_rho: bool = True, use_kernels: bool = True,
+                 fast_loop: str = "resident", **hooks):
         for name, val in hooks.items():
             if name not in _LATER:
                 raise TypeError(f"unexpected argument '{name}'")
@@ -159,7 +162,8 @@ class Model:
         self.nfast, w1, w2 = power_law_weights(cfg.ndtfast)
         self.fast_loop = make_fast_loop(cfg, self.nfast, w1, w2,
                                         var_rho=var_rho,
-                                        use_kernels=self.use_kernels)
+                                        use_kernels=self.use_kernels,
+                                        engine=fast_loop)
 
     def step(self, state: State) -> State:
         """One baroclinic step (main3d.F:216-1130)."""

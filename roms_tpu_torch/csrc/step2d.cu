@@ -1,4 +1,4 @@
-// Kernel 9: the fast barotropic loop (step2d_LF_AM3.h:163-3058), all nfast
+// Kernel 11: the fast barotropic loop (step2d_LF_AM3.h:163-3058), all nfast
 // LF-AM3 predictor + corrector substeps with the fast-time averages, in
 // one call.
 //
@@ -35,478 +35,91 @@
 // The BCs are applied inside each phase from global indices: the thread
 // of a ring point evaluates the pre-BC formula at the point the BC copies
 // from (bc_rho, bc_u with gamma2, bc_v, periodic lanes), so no BC pass
-// and no race.  The host loop rotates the carry's planes (zeta <->
+// and no race.  The per-point formulas live in step2d_point.cuh, shared
+// with the j-blocked engine (step2d_blocked.cu), here with the
+// whole-plane indexer.  The host loop rotates the carry's planes (zeta <->
 // zeta_prev, ubar <-> ubar_prev, ...) instead of copying them, and
 // returns where each carry field ended.
-#include "common.cuh"
+#include "step2d_point.cuh"
 
 namespace {
 
-using roms::mul_rn;
+using namespace roms::step2d;
 using roms::wrap;
 
-// planes of the (NPLANE, Mj, Li) carry + scratch buffer
-enum Plane {
-  ZETA, ZETA_PREV, UBAR, UBAR_PREV, VBAR, VBAR_PREV, RZ_PREV, RU_PREV,
-  RV_PREV, RUFRC, RVFRC, ZT, DU1, DV1, DU2, DV2,   // the 16 carry fields
-  DUON, DVOM, ZWRK, ZETA_P, UBAR_P, VBAR_P, RZ_M, RU_M, RV_M, RUFRC_N,
-  RVFRC_N, NPLANE
-};
-
-// read-only (Mj, Li) inputs, in the order of ops/step2d.py STATICS
-enum Stat {
-  H, PM, PN, RMASK, UMASK, VMASK, FOMN, DNDX, DMDE, ON_U, OM_V, PMON_R,
-  PNOM_R, PMON_P, PNOM_P, ON_R, OM_R, ON_P, OM_P, PMASK, VISC2_R, VISC2_P,
-  RHOS, RHOA, RU0, RV0, RU0P2, RV0P2, NSTAT
-};
-
-template <typename T>
-struct Ctx {
-  const T* st[NSTAT];
-  T* f[NPLANE];     // plane of each field in this substep
-  const T* tab;     // (nfast, 7) scalar table
-  int s;            // substep, 0-based
+// the whole (Mj, Li) plane: a point is its global (j, i), neighbours
+// wrapped as jnp.roll wraps; the BC maps return in-range indices
+struct PlaneIx {
   int Mj, Li;
-  int var_rho, uv_adv, uv_cor, curv, visc;
-  // constants, rounded once from the double values of the plain loop
-  T cff1g, fac, dtf, dtf2, half, s5, s8, s1, cff4p, cff5p, cff4c, cff5c,
-      c5, c8, c1, sixth, third, gamma2;
-
-  __device__ int at(int j, int i) const {
+  __device__ int grow(int j) const { return wrap(j, Mj); }
+  __device__ int sidx(int j, int i) const {
     return wrap(j, Mj) * Li + wrap(i, Li);
   }
-  // lane of an array after st.periodic_x
-  __device__ int px(int i) const {
-    return roms::ring_x(wrap(i, Li), Li, true);
+  __device__ int fidx(int j, int i) const { return sidx(j, i); }
+  __device__ int px(int i) const { return roms::ring_x(wrap(i, Li), Li, true); }
+  __device__ int ring_row(int j) const {
+    j = wrap(j, Mj);
+    return j == 0 ? 1 : (j == Mj - 1 ? Mj - 2 : j);
   }
-  __device__ T S(int id, int j, int i) const { return st[id][at(j, i)]; }
-  __device__ T V(int id, int j, int i) const { return f[id][at(j, i)]; }
-  __device__ T tab_at(int k) const { return tab[s * 7 + k]; }
-  __device__ bool first() const { return tab[s * 7] != T(0); }
-};
-
-// (i-1) - 2 i + (i+1) along x of field id at (j, i)
-template <typename T>
-__device__ T lapx(const Ctx<T>& c, int id, int j, int i) {
-  return c.V(id, j, i - 1) - T(2.0) * c.V(id, j, i) + c.V(id, j, i + 1);
-}
-template <typename T>
-__device__ T lapy(const Ctx<T>& c, int id, int j, int i) {
-  return c.V(id, j - 1, i) - T(2.0) * c.V(id, j, i) + c.V(id, j + 1, i);
-}
-
-// ---------------------------------------------------------------------------
-// the 2D momentum RHS (core/step2d.py _rhs2d_momentum) at one point
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct Rhs {
-  const Ctx<T>& c;
-  int ub, vb, DU, DV, Z;   // fields: ubar, vbar, fluxes, zeta of Drhs
-
-  // Drhs after st.periodic_x
-  __device__ T Dr(int j, int i) const {
-    const int ii = c.px(i);
-    return c.V(Z, j, ii) + c.S(H, j, ii);
-  }
-  __device__ T zw(int j, int i) const { return c.V(ZWRK, j, i); }
-  __device__ T gz(int j, int i) const {
-    return c.var_rho ? mul_rn(c.fac + c.S(RHOS, j, i), zw(j, i))
-                     : zw(j, i);
-  }
-  __device__ T gz2(int j, int i) const {
-    return c.var_rho ? mul_rn(gz(j, i), zw(j, i)) : mul_rn(zw(j, i), zw(j, i));
-  }
-  __device__ T gzSA(int j, int i) const {
-    return mul_rn(zw(j, i), c.S(RHOS, j, i) - c.S(RHOA, j, i));
-  }
-  // barotropic pressure gradient, u and v (_pg2d)
-  __device__ T pg(int j, int i, int dj, int di, int metric) const {
-    const int jm = j - dj, im = i - di;
-    const T hm = c.S(H, jm, im), h = c.S(H, j, i);
-    T p = mul_rn(hm + h, gz(jm, im) - gz(j, i)) + (gz2(jm, im) - gz2(j, i));
-    if (c.var_rho) {
-      const T t3 = c.third * (c.S(RHOA, jm, im) - c.S(RHOA, j, i));
-      p = p + mul_rn(hm - h, gzSA(jm, im) + gzSA(j, i) +
-                                 mul_rn(t3, zw(jm, im) - zw(j, i)));
-    }
-    return mul_rn(c.cff1g * c.S(metric, j, i), p);
-  }
-
-  // C4 advection fluxes
-  __device__ T gu(int j, int i) const { return lapx(c, ub, j, c.px(i)); }
-  __device__ T Dgu(int j, int i) const { return lapx(c, DU, j, c.px(i)); }
-  __device__ T DgDV(int j, int i) const { return lapx(c, DV, j, c.px(i)); }
-  __device__ T gv(int j, int i) const { return lapx(c, vb, j, c.px(i)); }
-  __device__ T DgDU(int j, int i) const { return lapy(c, DU, j, i); }
-  __device__ T gue(int j, int i) const {   // clamp rows 0 -> 1, Mj-1 -> Mj-2
-    j = wrap(j, c.Mj);
-    j = j == 0 ? 1 : (j == c.Mj - 1 ? c.Mj - 2 : j);
-    return lapy(c, ub, j, i);
-  }
-  __device__ int rv_row(int j) const {      // clamp rows 1 -> 2, Mj-1 -> Mj-2
-    j = wrap(j, c.Mj);
-    return j == 1 ? 2 : (j == c.Mj - 1 ? c.Mj - 2 : j);
-  }
-  __device__ T gve(int j, int i) const { return lapy(c, vb, rv_row(j), i); }
-  __device__ T Dgve(int j, int i) const { return lapy(c, DV, rv_row(j), i); }
-  __device__ T quarter_prod(T a0, T a1, T ga0, T ga1, T b0, T b1, T gb0,
-                            T gb1) const {
-    return mul_rn(T(0.25) * (a0 + a1 - mul_rn(c.sixth, ga0 + ga1)),
-                  b0 + b1 - mul_rn(c.sixth, gb0 + gb1));
-  }
-  __device__ T UFx(int j, int i) const {
-    return quarter_prod(c.V(ub, j, i), c.V(ub, j, i + 1), gu(j, i),
-                        gu(j, i + 1), c.V(DU, j, i), c.V(DU, j, i + 1),
-                        Dgu(j, i), Dgu(j, i + 1));
-  }
-  __device__ T UFe(int j, int i) const {
-    return quarter_prod(c.V(ub, j, i), c.V(ub, j - 1, i), gue(j, i),
-                        gue(j - 1, i), c.V(DV, j, i), c.V(DV, j, i - 1),
-                        DgDV(j, i), DgDV(j, i - 1));
-  }
-  __device__ T VFx(int j, int i) const {
-    return quarter_prod(c.V(vb, j, i), c.V(vb, j, i - 1), gv(j, i),
-                        gv(j, i - 1), c.V(DU, j, i), c.V(DU, j - 1, i),
-                        DgDU(j, i), DgDU(j - 1, i));
-  }
-  __device__ T VFe(int j, int i) const {
-    return quarter_prod(c.V(vb, j, i), c.V(vb, j + 1, i), gve(j, i),
-                        gve(j + 1, i), c.V(DV, j, i), c.V(DV, j + 1, i),
-                        Dgve(j, i), Dgve(j + 1, i));
-  }
-
-  // Coriolis and metric fluxes, ringed (raw value at the periodic lane)
-  __device__ T UFxc(int j, int i) const {
-    i = c.px(i);
-    const T cff = mul_rn(T(0.5) * Dr(j, i), c.S(FOMN, j, i));
-    return mul_rn(cff, c.V(vb, j, i) + c.V(vb, j + 1, i));
-  }
-  __device__ T VFec(int j, int i) const {
-    i = c.px(i);
-    const T cff = mul_rn(T(0.5) * Dr(j, i), c.S(FOMN, j, i));
-    return mul_rn(cff, c.V(ub, j, i) + c.V(ub, j, i + 1));
-  }
-  __device__ void curv_terms(int j, int i, T& UF, T& VF) const {
-    i = c.px(i);
-    const T c1 = T(0.5) * (c.V(vb, j, i) + c.V(vb, j + 1, i));
-    const T c2 = T(0.5) * (c.V(ub, j, i) + c.V(ub, j, i + 1));
-    const T cff = Dr(j, i) * (mul_rn(c1, c.S(DNDX, j, i)) -
-                              mul_rn(c2, c.S(DMDE, j, i)));
-    UF = mul_rn(cff, c1);
-    VF = mul_rn(cff, c2);
-  }
-
-  // harmonic viscosity stress factors, ringed
-  __device__ T cff_r(int j, int i) const {
-    i = c.px(i);
-    auto upn_u = [&](int ii) {
-      return mul_rn(c.S(PN, j, ii) + c.S(PN, j, ii - 1), c.V(ub, j, ii));
-    };
-    auto vpm_v = [&](int jj) {
-      return mul_rn(c.S(PM, jj, i) + c.S(PM, jj - 1, i), c.V(vb, jj, i));
-    };
-    const T dxp = upn_u(i + 1) - upn_u(i);
-    const T dyp = vpm_v(j + 1) - vpm_v(j);
-    return c.S(VISC2_R, j, i) * Dr(j, i) * T(0.5) *
-           (mul_rn(c.S(PMON_R, j, i), dxp) - mul_rn(c.S(PNOM_R, j, i), dyp));
-  }
-  __device__ T cff_p(int j, int i) const {
-    i = c.px(i);
-    auto vpn_v = [&](int ii) {
-      return mul_rn(c.S(PN, j, ii) + c.S(PN, j - 1, ii), c.V(vb, j, ii));
-    };
-    auto upm_u = [&](int jj) {
-      return mul_rn(c.S(PM, jj, i) + c.S(PM, jj, i - 1), c.V(ub, jj, i));
-    };
-    const T Drp = T(0.25) * (Dr(j, i) + Dr(j, i - 1) + Dr(j - 1, i) +
-                             Dr(j - 1, i - 1));
-    const T dxm = vpn_v(i) - vpn_v(i - 1);
-    const T dym = upm_u(j) - upm_u(j - 1);
-    return c.S(VISC2_P, j, i) * Drp * T(0.5) *
-           (mul_rn(c.S(PMON_P, j, i), dxm) + mul_rn(c.S(PNOM_P, j, i), dym)) *
-           c.S(PMASK, j, i);
-  }
-  __device__ T sq(int id, int j, int i) const {
-    const T m = c.S(id, j, i);
-    return m * m;
-  }
-
-  __device__ void eval(int j, int i, T& ru, T& rv) const {
-    ru = pg(j, i, 0, 1, ON_U);
-    rv = pg(j, i, 1, 0, OM_V);
-    if (c.uv_adv) {
-      ru = ru - (UFx(j, i) - UFx(j, i - 1)) - (UFe(j + 1, i) - UFe(j, i));
-      rv = rv - (VFx(j, i + 1) - VFx(j, i)) - (VFe(j, i) - VFe(j - 1, i));
-    }
-    if (c.uv_cor) {
-      ru = ru + T(0.5) * (UFxc(j, i) + UFxc(j, i - 1));
-      rv = rv - T(0.5) * (VFec(j, i) + VFec(j - 1, i));
-    }
-    if (c.curv) {
-      T UF0, VF0, UFm, VFm, UFj, VFj;
-      curv_terms(j, i, UF0, VF0);
-      curv_terms(j, i - 1, UFm, VFm);
-      curv_terms(j - 1, i, UFj, VFj);
-      ru = ru + T(0.5) * (UF0 + UFm);
-      rv = rv - T(0.5) * (VF0 + VFj);
-    }
-    if (c.visc) {
-      const T upn = c.S(PN, j, i) + c.S(PN, j, i - 1);
-      const T vpm = c.S(PM, j, i) + c.S(PM, j - 1, i);
-      const T vpn = c.S(PN, j, i) + c.S(PN, j - 1, i);
-      const T upm = c.S(PM, j, i) + c.S(PM, j, i - 1);
-      // UFxv = on_r^2 cff_r, VFev = om_r^2 cff_r, UFev = om_p^2 cff_p,
-      // VFxv = on_p^2 cff_p, each at its own point
-      auto UFxv = [&](int jj, int ii) {
-        return mul_rn(sq(ON_R, jj, ii), cff_r(jj, ii));
-      };
-      auto VFev = [&](int jj, int ii) {
-        return mul_rn(sq(OM_R, jj, ii), cff_r(jj, ii));
-      };
-      auto UFev = [&](int jj, int ii) {
-        return mul_rn(sq(OM_P, jj, ii), cff_p(jj, ii));
-      };
-      auto VFxv = [&](int jj, int ii) {
-        return mul_rn(sq(ON_P, jj, ii), cff_p(jj, ii));
-      };
-      ru = ru + mul_rn(T(0.5) * upn, UFxv(j, i) - UFxv(j, i - 1)) +
-           mul_rn(T(0.5) * upm, UFev(j + 1, i) - UFev(j, i));
-      rv = rv + mul_rn(T(0.5) * vpn, VFxv(j, i + 1) - VFxv(j, i)) -
-           mul_rn(T(0.5) * vpm, VFev(j, i) - VFev(j - 1, i));
-    }
+  __device__ int rv_row(int j) const {
+    j = wrap(j, Mj);
+    return j == 1 ? 2 : (j == Mj - 1 ? Mj - 2 : j);
   }
 };
 
-// ---------------------------------------------------------------------------
-// the three phase kernels, predictor (CORR = false) and corrector
-// ---------------------------------------------------------------------------
-
-// DUon, DVom of the flux state (_flux_state) and the fast-time averages
-template <typename T, bool CORR>
-__global__ void flux_phase(Ctx<T> c) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= c.Mj * c.Li) return;
-  const int i = n % c.Li, j = n / c.Li;
-  const int Zf = CORR ? ZETA_P : ZETA;
-  const int ii = c.px(i);
-  auto Dr = [&](int jj, int i2) { return c.V(Zf, jj, i2) + c.S(H, jj, i2); };
-  const T DU = mul_rn(
-      c.V(CORR ? UBAR_P : UBAR, j, ii) * (T(0.5) * (Dr(j, ii) + Dr(j, ii - 1))),
-      c.S(ON_U, j, ii));
-  const T DV = mul_rn(
-      c.V(CORR ? VBAR_P : VBAR, j, ii) * (T(0.5) * (Dr(j, ii) + Dr(j - 1, ii))),
-      c.S(OM_V, j, ii));
-  c.f[DUON][n] = DU;
-  c.f[DVOM][n] = DV;
-  if (CORR) {
-    const T A2c = c.tab_at(3);
-    c.f[DU2][n] = c.f[DU2][n] + mul_rn(A2c, DU);
-    c.f[DV2][n] = c.f[DV2][n] + mul_rn(A2c, DV);
-  } else if (c.first()) {
-    const T A2p = c.tab_at(2);
-    c.f[ZT][n] = T(0) * c.f[ZETA][n];
-    c.f[DU1][n] = T(0) * DU;
-    c.f[DV1][n] = T(0) * DV;
-    c.f[DU2][n] = A2p * DU;
-    c.f[DV2][n] = A2p * DV;
-  } else {
-    const T A1 = c.tab_at(1), A2p = c.tab_at(2);
-    c.f[ZT][n] = c.f[ZT][n] + mul_rn(A1, c.f[ZETA][n]);
-    c.f[DU1][n] = c.f[DU1][n] + mul_rn(A1, DU);
-    c.f[DV1][n] = c.f[DV1][n] + mul_rn(A1, DV);
-    c.f[DU2][n] = c.f[DU2][n] + mul_rn(A2p, DU);
-    c.f[DV2][n] = c.f[DV2][n] + mul_rn(A2p, DV);
-  }
-}
-
-// free surface: pre-BC zeta_new and zwrk at (j, i); predictor rhs_zeta
-template <typename T, bool CORR>
-__device__ void zeta_raw(const Ctx<T>& c, int j, int i, T& zn, T& zw,
-                         T& rhs) {
-  rhs = (c.V(DUON, j, i) - c.V(DUON, j, i + 1)) +
-        (c.V(DVOM, j, i) - c.V(DVOM, j + 1, i));
-  const T pmn = c.S(PM, j, i) * c.S(PN, j, i);
-  const T zeta = c.V(ZETA, j, i);
-  if (c.first()) {
-    zn = zeta + mul_rn(pmn * c.dtf, rhs);
-    zw = T(0.5) * (zeta + zn);
-  } else if (!CORR) {
-    const T zp = c.V(ZETA_PREV, j, i);
-    zn = zp + mul_rn(pmn * c.dtf2, rhs);
-    zw = mul_rn(c.cff5p, zeta) + mul_rn(c.cff4p, zp + zn);
-  } else {
-    const T f = mul_rn(c.s5, rhs) + mul_rn(c.s8, c.V(RZ_M, j, i)) -
-                mul_rn(c.s1, c.V(RZ_PREV, j, i));
-    zn = zeta + mul_rn(pmn, f);
-    zw = mul_rn(c.cff5c, zn) + mul_rn(c.cff4c, c.V(ZETA_P, j, i));
-  }
-}
-
-template <typename T, bool CORR>
-__global__ void zeta_phase(Ctx<T> c) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= c.Mj * c.Li) return;
-  const int i = n % c.Li, j = n / c.Li;
-  T zn, zw, rhs;
-  zeta_raw<T, CORR>(c, j, i, zn, zw, rhs);
-  if (!CORR) c.f[RZ_M][n] = rhs;
-  c.f[ZWRK][n] = zw;
-  // bc_rho: ring rows copy their inner neighbour, lanes the periodic ones
-  const int sj = j == 0 ? 1 : (j == c.Mj - 1 ? c.Mj - 2 : j);
-  const int si = c.px(i);
-  if (sj != j || si != i) zeta_raw<T, CORR>(c, sj, si, zn, zw, rhs);
-  c.f[CORR ? ZETA_PREV : ZETA_P][n] = zn * c.S(RMASK, sj, si);
-}
-
+// one phase launch's parameters
 template <typename T>
-struct MomPt {
-  T ru, rv;     // predictor: rhs + forcing (ru_m, rv_m)
-  T fu, fv;     // predictor: rufrc_c, rvfrc_c
-  T un, vn;     // masked, pre-BC ubar/vbar
+struct Params {
+  Consts<T> k;
+  const T* st[NSTAT];
+  const T* tab;
+  T* f[NPLANE];         // the planes after the host's rotations so far
+  int Mj, Li, s;
 };
 
-template <typename T, bool CORR>
-__device__ MomPt<T> mom_point(const Ctx<T>& c, int j, int i) {
-  const Rhs<T> R{c, CORR ? UBAR_P : UBAR, CORR ? VBAR_P : VBAR, DUON, DVOM,
-                 CORR ? ZETA_P : ZETA};
-  MomPt<T> p;
-  T hu, hv;
-  R.eval(j, i, hu, hv);
-  // new depth: predictor zeta_p, corrector zeta_c (in the ZETA_PREV plane)
-  const int Zn = CORR ? ZETA_PREV : ZETA_P;
-  auto Dn = [&](int jj, int ii) { return c.V(Zn, jj, ii) + c.S(H, jj, ii); };
-  const T Du_new = Dn(j, i) + Dn(j, i - 1);
-  const T Dv_new = Dn(j, i) + Dn(j - 1, i);
-  const T pmn4_u = (c.S(PM, j, i) + c.S(PM, j, i - 1)) *
-                   (c.S(PN, j, i) + c.S(PN, j, i - 1));
-  const T pmn4_v = (c.S(PM, j, i) + c.S(PM, j - 1, i)) *
-                   (c.S(PN, j, i) + c.S(PN, j - 1, i));
-  const bool first = c.first();
-  if (!CORR) {
-    T cffdt;
-    int Zs, Us, Vs;
-    if (first) {
-      p.fu = c.V(RUFRC, j, i) - hu;
-      p.fv = c.V(RVFRC, j, i) - hv;
-      const T a1 = c.tab_at(4), a2 = c.tab_at(5), a3 = c.tab_at(6);
-      p.ru = hu + (mul_rn(a1, p.fu) - mul_rn(a2, c.S(RU0, j, i)) +
-                   mul_rn(a3, c.S(RU0P2, j, i)));
-      p.rv = hv + (mul_rn(a1, p.fv) - mul_rn(a2, c.S(RV0, j, i)) +
-                   mul_rn(a3, c.S(RV0P2, j, i)));
-      cffdt = c.half;
-      Zs = ZETA, Us = UBAR, Vs = VBAR;
-    } else {
-      p.fu = c.V(RUFRC, j, i);
-      p.fv = c.V(RVFRC, j, i);
-      p.ru = hu + p.fu;
-      p.rv = hv + p.fv;
-      cffdt = c.dtf;
-      Zs = ZETA_PREV, Us = UBAR_PREV, Vs = VBAR_PREV;
-    }
-    auto Ds = [&](int jj, int ii) { return c.V(Zs, jj, ii) + c.S(H, jj, ii); };
-    const T Du_stp = Ds(j, i) + Ds(j, i - 1);
-    const T Dv_stp = Ds(j, i) + Ds(j - 1, i);
-    p.un = (mul_rn(c.V(Us, j, i), Du_stp) + mul_rn(pmn4_u * cffdt, p.ru)) /
-           Du_new * c.S(UMASK, j, i);
-    p.vn = (mul_rn(c.V(Vs, j, i), Dv_stp) + mul_rn(pmn4_v * cffdt, p.rv)) /
-           Dv_new * c.S(VMASK, j, i);
-  } else {
-    hu = hu + c.V(RUFRC, j, i);
-    hv = hv + c.V(RVFRC, j, i);
-    T tu, tv;
-    if (first) {
-      tu = c.half * hu;
-      tv = c.half * hv;
-    } else {
-      tu = c.half * (mul_rn(c.c5, hu) + mul_rn(c.c8, c.V(RU_M, j, i)) -
-                     mul_rn(c.c1, c.V(RU_PREV, j, i)));
-      tv = c.half * (mul_rn(c.c5, hv) + mul_rn(c.c8, c.V(RV_M, j, i)) -
-                     mul_rn(c.c1, c.V(RV_PREV, j, i)));
-    }
-    auto Ds = [&](int jj, int ii) { return c.V(ZETA, jj, ii) + c.S(H, jj, ii); };
-    const T Du_stp = Ds(j, i) + Ds(j, i - 1);
-    const T Dv_stp = Ds(j, i) + Ds(j - 1, i);
-    p.un = (mul_rn(c.V(UBAR, j, i), Du_stp) + mul_rn(pmn4_u, tu)) / Du_new *
-           c.S(UMASK, j, i);
-    p.vn = (mul_rn(c.V(VBAR, j, i), Dv_stp) + mul_rn(pmn4_v, tv)) / Dv_new *
-           c.S(VMASK, j, i);
-  }
-  return p;
+template <typename T>
+__device__ Ctx<T, PlaneIx> plane_ctx(const Params<T>& p) {
+  return {p.k, p.st, p.tab, p.f, PlaneIx{p.Mj, p.Li}, p.s};
 }
 
 template <typename T, bool CORR>
-__global__ void mom_phase(Ctx<T> c) {
+__global__ void flux_phase(const __grid_constant__ Params<T> p) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= c.Mj * c.Li) return;
-  const int i = n % c.Li, j = n / c.Li, Mj = c.Mj;
-  const MomPt<T> own = mom_point<T, CORR>(c, j, i);
-  if (!CORR) {
-    c.f[RU_M][n] = own.ru;
-    c.f[RV_M][n] = own.rv;
-    if (c.first()) {
-      c.f[RUFRC_N][n] = own.fu;
-      c.f[RVFRC_N][n] = own.fv;
-    }
-  }
-  // bc_u: closed N/S walls hold gamma2 * the inner row; bc_v: rows 0, 1
-  // and Mj-1 zero; both take the periodic lanes
-  const int sj = j == 0 ? 1 : (j == Mj - 1 ? Mj - 2 : j);
-  const int si = c.px(i);
-  T u = (sj == j && si == i) ? own.un : mom_point<T, CORR>(c, sj, si).un;
-  if (sj != j) u = c.gamma2 * u;
-  T v = T(0);
-  if (j != 0 && j != 1 && j != Mj - 1)
-    v = si == i ? own.vn : mom_point<T, CORR>(c, j, si).vn;
-  c.f[CORR ? UBAR_PREV : UBAR_P][n] = u;
-  c.f[CORR ? VBAR_PREV : VBAR_P][n] = v;
+  if (n >= p.Mj * p.Li) return;
+  flux_point<T, CORR>(plane_ctx(p), n / p.Li, n % p.Li);
+}
+
+template <typename T, bool CORR>
+__global__ void zeta_phase(const __grid_constant__ Params<T> p) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.Mj * p.Li) return;
+  zeta_point<T, CORR>(plane_ctx(p), n / p.Li, n % p.Li);
+}
+
+template <typename T, bool CORR>
+__global__ void mom_phase(const __grid_constant__ Params<T> p) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.Mj * p.Li) return;
+  mom_point<T, CORR>(plane_ctx(p), n / p.Li, n % p.Li);
 }
 
 template <typename T>
 int run(const void* const* stat, void* buf, const void* table, int* final_idx,
         int nfast, int Mj, int Li, const double* k, int flags,
         void* stream) {
-  Ctx<T> c;
+  Params<T> c;
   for (int s = 0; s < NSTAT; ++s) c.st[s] = static_cast<const T*>(stat[s]);
   c.tab = static_cast<const T*>(table);
   c.Mj = Mj;
   c.Li = Li;
-  c.var_rho = flags & 1;
-  c.uv_adv = (flags >> 1) & 1;
-  c.uv_cor = (flags >> 2) & 1;
-  c.curv = (flags >> 3) & 1;
-  c.visc = (flags >> 4) & 1;
-  const double g = k[0], rho0 = k[1], dtf = k[2];
-  c.cff1g = T(0.5 * g);
-  c.fac = T(1000.0 / rho0);
-  c.dtf = T(dtf);
-  c.dtf2 = T(2.0 * dtf);
-  c.half = T(0.5 * dtf);
-  c.s5 = T(5.0 / 12.0 * dtf);
-  c.s8 = T(8.0 / 12.0 * dtf);
-  c.s1 = T(1.0 / 12.0 * dtf);
-  c.cff4p = T(4.0 / 25.0);
-  c.cff5p = T(1.0 - 2.0 * (4.0 / 25.0));
-  c.cff4c = T(2.0 / 5.0);
-  c.cff5c = T(1.0 - 2.0 / 5.0);
-  c.c5 = T(5.0 / 12.0);
-  c.c8 = T(8.0 / 12.0);
-  c.c1 = T(1.0 / 12.0);
-  c.sixth = T(1.0 / 6.0);
-  c.third = T(1.0 / 3.0);
-  c.gamma2 = T(k[3]);
+  c.k.set(k, flags);
 
-  int slot[NPLANE];
-  for (int p = 0; p < NPLANE; ++p) slot[p] = p;
+  Slots slot;
+  slot.reset();
   T* base = static_cast<T*>(buf);
   const size_t P = static_cast<size_t>(Mj) * Li;
   auto resolve = [&]() {
-    for (int p = 0; p < NPLANE; ++p) c.f[p] = base + slot[p] * P;
-  };
-  auto swap = [&](int a, int b) {
-    const int t = slot[a];
-    slot[a] = slot[b];
-    slot[b] = t;
+    for (int p = 0; p < NPLANE; ++p) c.f[p] = base + slot.s[p] * P;
   };
   const int nb = roms::blocks_for(static_cast<long long>(P));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -524,9 +137,8 @@ int run(const void* const* stat, void* buf, const void* table, int* final_idx,
     check();
     mom_phase<T, false><<<nb, roms::kThreads, 0, st>>>(c);
     check();
-    if (s == 0) {      // rufrc_c of the first substep becomes the forcing
-      swap(RUFRC, RUFRC_N);
-      swap(RVFRC, RVFRC_N);
+    if (s == 0) {
+      slot.after_first_predictor();
       resolve();
     }
     flux_phase<T, true><<<nb, roms::kThreads, 0, st>>>(c);
@@ -535,14 +147,9 @@ int run(const void* const* stat, void* buf, const void* table, int* final_idx,
     check();
     mom_phase<T, true><<<nb, roms::kThreads, 0, st>>>(c);
     check();
-    swap(ZETA, ZETA_PREV);     // zeta_c was written to the zeta_prev plane
-    swap(UBAR, UBAR_PREV);
-    swap(VBAR, VBAR_PREV);
-    swap(RZ_PREV, RZ_M);
-    swap(RU_PREV, RU_M);
-    swap(RV_PREV, RV_M);
+    slot.after_substep();
   }
-  for (int p = 0; p < DV2 + 1; ++p) final_idx[p] = slot[p];
+  for (int p = 0; p < NCARRY; ++p) final_idx[p] = slot.s[p];
   return static_cast<int>(err);
 }
 

@@ -30,14 +30,16 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# launch counts of the seventeen kernel entry points (one per wrapper
+# launch counts of the eighteen kernel entry points (one per wrapper
 # call; fast_loop_res launches ops/step2d.PHASES CUDA kernels a substep;
-# tridiag is csrc/tridiag.cu's roms_tridiag_f32/_f64)
+# fast_loop_blocked counts each of its launches, one per chunk of
+# ops/step2d.chunk_schedule; tridiag is csrc/tridiag.cu's
+# roms_tridiag_f32/_f64)
 launches = {name: 0 for name in (
     "rho_eos", "tadv_predictor", "tadv_corrector", "rhs3d_momentum",
     "uv_solve", "uv_finish", "spline_vdiff", "flux_omega", "omega",
-    "prsgrd32", "uv3dmix2_s", "fast_loop_res", "bulk_flux", "kpp", "prep",
-    "rot_div_geo", "tridiag")}
+    "prsgrd32", "uv3dmix2_s", "fast_loop_res", "fast_loop_blocked",
+    "bulk_flux", "kpp", "prep", "rot_div_geo", "tridiag")}
 
 _lib = None
 build_seconds = None

@@ -1,14 +1,20 @@
-"""Kernel 9: the fast barotropic loop (csrc/step2d.cu), all nfast
-predictor + corrector substeps in one call.
+"""Kernels 11 and 12: the fast barotropic loop, nfast predictor +
+corrector substeps, as two CUDA engines over one set of per-point
+formulas (csrc/step2d_point.cuh).
 
-Replaces roms_tpu/ops/pallas_step2d.py `fast_loop_pallas_res`; the
-plain version is core/step2d.py's substep loop.  Both return the 16
-carry fields (FastCarry); core/step2d.py's `aux_pass` finishes the
-averages either way.  `covers` is `_class_ok` (pallas_step2d.py:890):
-an EW-periodic channel with closed N/S walls for zeta, ubar and vbar,
-no VolCons, no wet/dry.  The wrapper uploads the per-substep scalar
-table once; the CUDA side then launches PHASES kernels per substep with
-no host synchronisation in between.
+- `fast_loop_res` (csrc/step2d.cu) replaces roms_tpu/ops/
+  pallas_step2d.py `fast_loop_pallas_res`: all substeps in one call, six
+  whole-plane phase kernels per substep, the scalar table uploaded once.
+- `fast_loop_blocked` (csrc/step2d_blocked.cu) replaces
+  `fast_loop_pallas`, the j-blocked engine: one launch per chunk of
+  `chunk_schedule(nfast)` substeps (KS = 2, KS = 1 for an odd
+  remainder), each CUDA block a tile that recomputes its halo.
+
+The plain version of both is core/step2d.py's substep loop.  Both return
+the 16 carry fields (FastCarry); core/step2d.py's `aux_pass` finishes
+the averages either way.  `covers` is `_class_ok` (pallas_step2d.py:890):
+an EW-periodic channel with closed N/S walls for zeta, ubar and vbar, no
+VolCons, no wet/dry.
 """
 
 from __future__ import annotations
@@ -22,12 +28,15 @@ from ..config import CLOSED, PERIODIC
 from . import _lib
 
 # (Mj, Li) grid fields the kernel reads, then rhoS, rhoA and the AB3
-# histories ru0, rv0, ru0p2, rv0p2 (csrc/step2d.cu enum Stat)
+# histories ru0, rv0, ru0p2, rv0p2 (csrc/step2d_point.cuh enum Stat)
 STATICS = ("h", "pm", "pn", "rmask", "umask", "vmask", "fomn", "dndx",
            "dmde", "on_u", "om_v", "pmon_r", "pnom_r", "pmon_p", "pnom_p",
            "on_r", "om_r", "on_p", "om_p", "pmask", "visc2_r", "visc2_p")
 NPLANE = 27      # 16 carry planes + 11 scratch planes (enum Plane)
-PHASES = 6       # CUDA launches per substep
+PHASES = 6       # kernel 11's CUDA launches per substep
+# kernel 12's tile (rows, lanes): the fastest of the tiles timed on the
+# H100 at both full-width channel shapes (PERF.md)
+TILE = (24, 96)
 
 
 def covers(cfg) -> bool:
@@ -66,56 +75,140 @@ def fast_loop_res_plain(cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0,
         rv0_prev, ru0_prev2, rv0_prev2, iic)
 
 
-def fast_loop_res(cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0, vbar0,
-                  rufrc, rvfrc, rhoS, rhoA, ru0_prev, rv0_prev, ru0_prev2,
-                  rv0_prev2, iic):
-    """Wrapper: plain version on CPU tensors, kernel on CUDA tensors."""
-    args = (cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0, vbar0, rufrc,
-            rvfrc, rhoS, rhoA, ru0_prev, rv0_prev, ru0_prev2, rv0_prev2,
-            iic)
-    if zeta0.device.type == "cpu":
-        return fast_loop_res_plain(*args)
+def chunk_schedule(nfast: int):
+    """Substeps of each kernel-12 launch: KS = 2, and one KS = 1 launch
+    for an odd remainder (pallas_step2d.py:641-674)."""
+    return [2] * (nfast // 2) + [1] * (nfast % 2)
+
+
+def halo(ks: int):
+    """(rows, lanes) per window edge that keep a tile exact over ks
+    substeps (csrc/step2d_blocked.cu): 6 points a substep, one row more
+    for the wall copies, two lanes more for the periodic lanes."""
+    return 6 * ks + 1, 6 * ks + 2
+
+
+def tiling(Mj: int, Li: int):
+    """(TJ, TI) of kernel 12's tiles: about TILE, evened out over the
+    grid."""
+    nj, ni = -(-Mj // TILE[0]), -(-Li // TILE[1])
+    return -(-Mj // nj), -(-Li // ni)
+
+
+def _kernel_inputs(name, cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0,
+                   vbar0, rufrc, rvfrc, rhoS, rhoA, ru0_prev, rv0_prev,
+                   ru0_prev2, rv0_prev2, iic):
+    """What both engines hand their kernel: the statics (STATICS, rhoS,
+    rhoA, the AB3 histories), the initial carry as 16 (Mj, Li) planes,
+    the scalar table, the constants and flags, the dtype suffix and the
+    stream."""
     if not covers(cfg):
         raise NotImplementedError(
-            "fast loop kernel covers the EW-periodic channel with closed "
-            "N/S walls, without VolCons or wet/dry")
-    from ..core.step2d import FastAverages, FastCarry
+            f"{name}: the fast loop kernels cover the EW-periodic channel "
+            "with closed N/S walls, without VolCons or wet/dry")
     stat, sfx, stream = _lib.prepare(
-        "fast_loop_res", [getattr(grid, n) for n in STATICS]
+        name, [getattr(grid, n) for n in STATICS]
         + [rhoS, rhoA, ru0_prev, rv0_prev, ru0_prev2, rv0_prev2])
-    init, _, _ = _lib.prepare("fast_loop_res",
-                              [zeta0, ubar0, vbar0, rufrc, rvfrc])
+    init, _, _ = _lib.prepare(name, [zeta0, ubar0, vbar0, rufrc, rvfrc])
     Mj, Li = zeta0.shape
     if any(x.shape != (Mj, Li) for x in stat + init) or Li < 4 or Mj < 4:
-        raise ValueError("fast_loop_res: inconsistent shapes")
-    buf = torch.empty((NPLANE, Mj, Li), dtype=zeta0.dtype,
-                      device=zeta0.device)
+        raise ValueError(f"{name}: inconsistent shapes")
     zeta0, ubar0, vbar0, rufrc, rvfrc = init
+    carry = torch.zeros((16, Mj, Li), dtype=zeta0.dtype,
+                        device=zeta0.device)
     for k, x in enumerate((zeta0, zeta0, ubar0, ubar0, vbar0, vbar0)):
-        buf[k].copy_(x)
-    buf[6:9].zero_()
-    buf[9].copy_(rufrc)
-    buf[10].copy_(rvfrc)
-    buf[11:16].zero_()
+        carry[k].copy_(x)
+    carry[9].copy_(rufrc)
+    carry[10].copy_(rvfrc)
     table = torch.tensor(scalar_table(nfast, w1, w2, iic),
                          dtype=zeta0.dtype, device=zeta0.device)
-    final = (ctypes.c_int * 16)()
     consts = (ctypes.c_double * 4)(cfg.g, cfg.rho0, cfg.dt / cfg.ndtfast,
                                    cfg.gamma2)
     flags = (int(bool(var_rho)) | int(bool(cfg.uv_adv)) << 1
              | int(bool(cfg.uv_cor)) << 2
              | int(bool(cfg.curvgrid and cfg.uv_adv)) << 3
              | int(cfg.mixing.visc2 > 0.0) << 4)
-    P, I = _lib.P, _lib.I
-    fn = _lib.func(f"roms_fast_loop_{sfx}", [P, P, P, P, I, I, I, P, I, P])
-    rc = fn((P * len(stat))(*[x.data_ptr() for x in stat]),
-            _lib.ptr(buf), _lib.ptr(table), final, nfast, Mj, Li, consts,
-            flags, P(stream))
-    _lib.launches["fast_loop_res"] += 1
-    _lib.check(rc, "fast_loop_res")
-    f = [buf[final[k]] for k in range(16)]
+    statp = (_lib.P * len(stat))(*[x.data_ptr() for x in stat])
+    return stat, statp, carry, table, consts, flags, sfx, stream
+
+
+def _carry(f, ru0_prev, rv0_prev):
+    from ..core.step2d import FastAverages, FastCarry
     return FastCarry(
         zeta=f[0], zeta_prev=f[1], ubar=f[2], ubar_prev=f[3], vbar=f[4],
         vbar_prev=f[5], rzeta_prev=f[6], rubar_prev=f[7], rvbar_prev=f[8],
         rufrc=f[9], rvfrc=f[10], ru0=ru0_prev, rv0=rv0_prev,
         avg=FastAverages(*f[11:16]))
+
+
+def fast_loop_res(cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0, vbar0,
+                  rufrc, rvfrc, rhoS, rhoA, ru0_prev, rv0_prev, ru0_prev2,
+                  rv0_prev2, iic):
+    """Kernel 11's wrapper: plain version on CPU tensors, kernel on CUDA
+    tensors."""
+    args = (cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0, vbar0, rufrc,
+            rvfrc, rhoS, rhoA, ru0_prev, rv0_prev, ru0_prev2, rv0_prev2,
+            iic)
+    if zeta0.device.type == "cpu":
+        return fast_loop_res_plain(*args)
+    return _launch_res(*args)
+
+
+def _launch_res(*args):
+    stat, statp, carry, table, consts, flags, sfx, stream = \
+        _kernel_inputs("fast_loop_res", *args)
+    nfast, ru0_prev, rv0_prev = args[2], args[13], args[14]
+    Mj, Li = carry.shape[1:]
+    buf = torch.empty((NPLANE, Mj, Li), dtype=carry.dtype,
+                      device=carry.device)
+    buf[:16].copy_(carry)
+    final = (ctypes.c_int * 16)()
+    P, I = _lib.P, _lib.I
+    fn = _lib.func(f"roms_fast_loop_{sfx}", [P, P, P, P, I, I, I, P, I, P])
+    rc = fn(statp, _lib.ptr(buf), _lib.ptr(table), final, nfast, Mj, Li,
+            consts, flags, P(stream))
+    _lib.launches["fast_loop_res"] += 1
+    _lib.check(rc, "fast_loop_res")
+    return _carry([buf[final[k]] for k in range(16)], ru0_prev, rv0_prev)
+
+
+def fast_loop_blocked(cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0,
+                      vbar0, rufrc, rvfrc, rhoS, rhoA, ru0_prev, rv0_prev,
+                      ru0_prev2, rv0_prev2, iic):
+    """Kernel 12's wrapper: plain version (kernel 11's, since both engines
+    compute one function) on CPU tensors; on CUDA tensors
+    one kernel launch per chunk of `chunk_schedule(nfast)`, counted each,
+    the carry ping-ponged between two 16-plane buffers."""
+    args = (cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0, vbar0, rufrc,
+            rvfrc, rhoS, rhoA, ru0_prev, rv0_prev, ru0_prev2, rv0_prev2,
+            iic)
+    if zeta0.device.type == "cpu":
+        return fast_loop_res_plain(*args)
+    return _launch_blocked(*args)
+
+
+def _launch_blocked(*args):
+    stat, statp, src, table, consts, flags, sfx, stream = \
+        _kernel_inputs("fast_loop_blocked", *args)
+    nfast, ru0_prev, rv0_prev = args[2], args[13], args[14]
+    Mj, Li = src.shape[1:]
+    TJ, TI = tiling(Mj, Li)
+    hj, hi = halo(2)
+    blocks = -(-Mj // TJ) * -(-Li // TI)
+    scratch = torch.empty(blocks * NPLANE * (TJ + 2 * hj) * (TI + 2 * hi),
+                          dtype=src.dtype, device=src.device)
+    dst = torch.empty_like(src)
+    P, I = _lib.P, _lib.I
+    fn = _lib.func(f"roms_fast_loop_blocked_{sfx}",
+                   [P, P, P, P, P, I, I, I, I, I, I, I, I, P, I, P])
+    s0 = 0
+    for ks in chunk_schedule(nfast):
+        hj, hi = halo(ks)
+        rc = fn(statp, _lib.ptr(src), _lib.ptr(dst), _lib.ptr(scratch),
+                _lib.ptr(table), s0, ks, Mj, Li, TJ, TI, hj, hi, consts,
+                flags, P(stream))
+        _lib.launches["fast_loop_blocked"] += 1
+        _lib.check(rc, "fast_loop_blocked")
+        src, dst = dst, src
+        s0 += ks
+    return _carry(list(src), ru0_prev, rv0_prev)

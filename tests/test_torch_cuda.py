@@ -20,16 +20,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
-from roms_tpu_torch.ops import _lib, tadv  # noqa: E402
+from roms_tpu_torch.ops import _lib, step2d, tadv  # noqa: E402
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
-# physics and KPP alone, and the tridiagonal solve of the GLS channel
+# physics and KPP alone, the tridiagonal solve of the GLS channel, and
+# the j-blocked fast loop on the UPWELLING and BENCHMARK channels
 CASES = [("double_gyre", n) for n in cs.SLICE1] + [
     ("upwelling", n) for n in cs.SLICE2] + [
     ("benchmark", n) for n in cs.APPS["benchmark"]["entries"]
     + cs.APPS["benchmark"]["off_path"]] + [
-    ("upwelling_gls", n) for n in cs.APPS["upwelling_gls"]["checked"]]
+    ("upwelling_gls", n) for n in cs.APPS["upwelling_gls"]["checked"]] + [
+    (app, n) for app in cs.BLOCKED if cs.APPS[app]["kernel_sizes"]
+    for n in cs.APPS[app]["checked"]]
 
 
 def _need_card():
@@ -45,7 +48,10 @@ def test_cuda_kernel_matches_plain(app, name):
     args, _ = cs.entry_inputs(torch, name, *env, 5)
     rel, _ = cs.compare(torch, name, args, "float64")
     assert rel <= cs.TOL_F64.get(name, cs.TOL["float64"]), (name, rel)
-    assert _lib.launches[name] == before + 1
+    # kernel 12 launches once per chunk of its substeps
+    want = len(step2d.chunk_schedule(args[2])) \
+        if name == "fast_loop_blocked" else 1
+    assert _lib.launches[name] == before + want
 
 
 def test_wrapper_on_cpu_tensors_takes_the_plain_version():
@@ -90,3 +96,38 @@ def test_tridiag_wrapper_raises_outside_its_class(shape):
     with pytest.raises(ValueError, match="tridiag"):
         tridiag.tridiag_solve(x, x, x, x)
     assert _lib.launches["tridiag"] == before
+
+
+def test_fast_loop_blocked_raises_outside_its_class():
+    """On CUDA tensors kernel 12's wrapper launches or raises: the closed
+    DOUBLE_GYRE basin is outside the channel class, so it raises and
+    falls back neither to kernel 11 nor to the plain loop."""
+    _need_card()
+    env = cs.setup(torch, 12, 14, 4, "float64", app="double_gyre")
+    args, _ = cs.entry_inputs(torch, "fast_loop_blocked", *env, 5)
+    before = dict(_lib.launches)
+    with pytest.raises(NotImplementedError, match="fast_loop_blocked"):
+        step2d.fast_loop_blocked(*args)
+    assert _lib.launches == before
+
+
+def test_blocked_engine_step_launches_kernel_12_only():
+    """One float64 UPWELLING step of Model(fast_loop="blocked") on the
+    card launches kernel 12 once per chunk and kernel 11 never, and
+    agrees with the resident engine's step."""
+    _need_card()
+    runs = []
+    for app in ("upwelling_blocked", "upwelling"):
+        model, s = cs.make_model(torch, app, 12, 14, 8, "float64", True,
+                                 300.0, True)
+        before = dict(_lib.launches)
+        runs.append(model.step(s))
+        n12 = _lib.launches["fast_loop_blocked"] - before["fast_loop_blocked"]
+        n11 = _lib.launches["fast_loop_res"] - before["fast_loop_res"]
+        blocked = app == "upwelling_blocked"
+        assert n12 == (len(step2d.chunk_schedule(model.nfast)) if blocked
+                       else 0)
+        assert n11 == (0 if blocked else 1)
+    for f in ("zeta", "ubar", "vbar", "u", "v", "t"):
+        a, b = getattr(runs[0], f), getattr(runs[1], f)
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max()), f

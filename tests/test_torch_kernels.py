@@ -248,11 +248,13 @@ def test_slice_covers_the_tpu_kernels_of_double_gyre(monkeypatch):
                           "uvmix", "fast_loop_pallas_res", "uv", "vdiff"}
 
 
-def _port_fired(cfg, bulk=False):
-    """The port's kernel classes (each ops module's `covers`, the step's
-    LMD-KPP route, the closures' call-site gate on their solves), as the
-    set of roms_tpu kernel names they stand for."""
+def _port_fired(cfg, bulk=False, engine="resident"):
+    """The port's kernel classes (each ops module's `covers`, the fast
+    loop's engine switch, the step's LMD-KPP route, the closures'
+    call-site gate on their solves), as the set of roms_tpu kernel names
+    they stand for."""
     from roms_tpu_torch import convert
+    from roms_tpu_torch.core.step2d import fast_loop_kernel
     from roms_tpu_torch.core.stepping import kpp_route
     from roms_tpu_torch.ops import (bulk as tbulk, flux, hmix as thmix,
                                     prsgrd, rho, rhs3d, step2d, tadv, uv,
@@ -260,9 +262,12 @@ def _port_fired(cfg, bulk=False):
     from torch_port_util import cfg_dict
     tcfg = convert.config_from_dict(cfg_dict(cfg))
     gates = {"flux": flux, "tadv": tadv, "prsgrd": prsgrd, "rhs3d": rhs3d,
-             "uvmix": uvmix, "hmix": thmix, "fast_loop_pallas_res": step2d,
-             "uv": uv, "vdiff": vdiff}
+             "uvmix": uvmix, "hmix": thmix, "uv": uv, "vdiff": vdiff}
     fired = {k for k, mod in gates.items() if mod.covers(tcfg)}
+    fast = fast_loop_kernel(tcfg, engine)
+    if fast is not None:
+        fired.add({step2d.fast_loop_res: "fast_loop_pallas_res",
+                   step2d.fast_loop_blocked: "fast_loop_pallas"}[fast])
     route = kpp_route(tcfg)
     if route is not None:
         fired.add(route)
@@ -395,3 +400,29 @@ def test_port_gates_match_roms_tpu(monkeypatch, name):
         assert fired == BENCHMARK3_FULL
     if name == "benchmark3_light":
         assert fired == BENCHMARK3_FULL - {"prep", "bulk"} | {"rho"}
+
+
+@pytest.mark.parametrize("name", ["upwelling", "upwelling_full_width",
+                                  "benchmark3_full_physics", "double_gyre"])
+def test_blocked_engine_gates_match_roms_tpu(monkeypatch, name):
+    """Under ROMS_TPU_PALLAS_STEP2D=1 with ROMS_TPU_FASTLOOP_RES=0
+    roms_tpu's channel step runs the j-blocked engine in place of the
+    resident one; the port's gates with engine "blocked" fire the same
+    set.  Neither engine fires on the closed basin."""
+    for var in [v for v in os.environ if v.startswith("ROMS_TPU_")]:
+        monkeypatch.delenv(var)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    cfg, bulk = _gate_configs()[name]
+    default = _fired(cfg, bulk)
+    monkeypatch.setenv("ROMS_TPU_PALLAS_STEP2D", "1")
+    monkeypatch.setenv("ROMS_TPU_FASTLOOP_RES", "0")
+    fired = _fired(cfg, bulk)
+    if name == "double_gyre":
+        assert fired == default
+        assert not fired & {"fast_loop_pallas_res", "fast_loop_pallas"}
+    else:
+        assert "fast_loop_pallas_res" in default
+        assert fired == default - {"fast_loop_pallas_res"} | {
+            "fast_loop_pallas"}
+    assert _port_fired(cfg, bulk, engine="blocked") == fired
