@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --profile  # only: where the full-width steps'
                                      # time goes (CUDA events, profiler)
+                                     # and the fast loop's by 2D term
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
@@ -116,6 +117,8 @@ def main():
     if "--profile" in sys.argv[1:]:
         for app in full:
             profile_step(torch, app)
+        for app in ("benchmark", "upwelling"):
+            fast_loop_terms(torch, app)
         return 0
     kernel_phase_checks(torch)
     for app in APPS:
@@ -194,10 +197,15 @@ FLOPS_PER_POINT = {"rho_eos": 12, "tadv_predictor": 90,
                    "bulk_flux": 700, "kpp": 160, "prep": 230,
                    "rot_div_geo": 85, "tridiag": 9,
                    "fast_loop_blocked": 470}
-# (Mj, Li) planes a fast-loop substep after the first reads or writes,
-# each counted once per phase (csrc/step2d.cu: flux 18 + 12, zeta 10 +
-# 11, momentum 37 + 39), for the per-substep traffic line
-FAST_LOOP_PLANES_PER_SUBSTEP = 127
+# (Mj, Li) planes a kernel-11 launch after the first substep reads or
+# writes, each once (csrc/step2d.cu).  Predictor: the state zeta, ubar,
+# vbar 3, the statics 3 (flux) + 3 (zeta) + 18 (momentum), the
+# averages 5 in and out, zeta_prev, ubar_prev, vbar_prev, rufrc, rvfrc,
+# and rhs_zeta, zeta_p, ru_m, rv_m, ubar_p, vbar_p out: 48.  Corrector:
+# the state 3, the statics 24, DU2/DV2 in and out, zeta, rz_m, rz_prev,
+# ubar, vbar, rufrc, rvfrc, ru_m, rv_m, ru_prev, rv_prev, and zeta_c,
+# ubar and vbar out: 45.  For the design floor line.
+FAST_LOOP_PLANES_PER_LAUNCH = {"predictor": 48, "corrector": 45}
 
 APPS = {
     "double_gyre": dict(entries=SLICE1, dt=240.0,
@@ -744,9 +752,10 @@ def full_width(torch, app):
     print(f"full width {app} {Mm + 2}x{Lm + 2}x{N} float32: {ms_step:.3f} "
           f"ms/step (CUDA events), host wall {1e3 * wall / nsteps:.3f} "
           f"ms/step, nfast={model.nfast} [{CARD}]", flush=True)
+    per_call = step2d.HALF_STEPS * model.nfast \
+        if counts["fast_loop_res"] else 0
     print(f"{app} launches in {nsteps} steps: {counts}; plain-version "
-          f"calls: 0; fast loop CUDA launches per call: "
-          f"{step2d.PHASES * model.nfast if counts['fast_loop_res'] else 0}",
+          f"calls: 0; fast loop CUDA launches per call: {per_call}",
           flush=True)
     per_step = APPS[app].get("per_step", {})
     for name, n in counts.items():
@@ -969,12 +978,31 @@ def kernel_table(torch, app, counts):
             print(f"{app} bulk_flux stagger_stress alone {stag_ms:.4f} ms "
                   f"of the wrapper's {ms:.4f} ms", flush=True)
         if name == "fast_loop_res":
-            sub = FAST_LOOP_PLANES_PER_SUBSTEP * outs[0].numel() * \
-                outs[0].element_size()
-            print(f"{app} fast_loop_res per substep: "
-                  f"{ms / args[2]:.4f} ms, {sub / 1e6:.1f} MB touched once "
-                  f"per phase -> {1e3 * sub / HBM_BYTES_PER_S:.4f} ms",
-                  flush=True)
+            # its own design's floor: the planes each launch moves once
+            from roms_tpu_torch.ops.step2d import HALF_STEPS, \
+                res_launch_shape
+            nl = HALF_STEPS * args[2]
+            plane = outs[0].numel() * outs[0].element_size()
+            per = sum(FAST_LOOP_PLANES_PER_LAUNCH.values()) / 2 * plane
+            TJ, TI, HJ, HI, blocks, smem = res_launch_shape(
+                *outs[0].shape, outs[0].element_size())
+            print(f"{app} fast_loop_res per launch: {ms / nl:.4f} ms over "
+                  f"{nl} launches; {per / plane:g} planes, {per / 1e6:.1f} "
+                  f"MB a launch -> {1e3 * per / HBM_BYTES_PER_S:.4f} ms, "
+                  f"{nl * 1e3 * per / HBM_BYTES_PER_S:.4f} ms a call; tile "
+                  f"{TJ}x{TI}, halo {HJ}/{HI}, {blocks} blocks, {smem} B "
+                  f"dynamic shared memory a block", flush=True)
+        if name == "rot_div_geo":
+            from roms_tpu_torch.ops.hmix import launch_shape
+            NT, N, Mj, Li = outs[0].shape
+            TJ, TI, blocks, smem = launch_shape(NT, Mj, Li,
+                                                outs[0].element_size())
+            halo = (TJ + 2) * (TI + 2) / (TJ * TI)
+            print(f"{app} rot_div_geo tile {TJ}x{TI}, {blocks} blocks, "
+                  f"{smem} B dynamic shared memory a block; q, z_r and Hz "
+                  f"read over windows {halo:.3f}x the tiles (halo from L2); "
+                  f"the coefficient planes built in the kernel, no PyTorch "
+                  f"operation in the wrapper", flush=True)
         if name == "fast_loop_blocked":
             # its own design's floor: each launch reads the carry and the
             # statics and writes the carry
@@ -990,6 +1018,27 @@ def kernel_table(torch, app, counts):
     del env
     torch.cuda.empty_cache()
     return table
+
+
+def fast_loop_terms(torch, app):
+    """Kernel 11's time at the app's full width with each term of the 2D
+    momentum RHS switched off in turn (the pressure gradient, the
+    updates and the fluxes stay): where the loop's time goes by term."""
+    from roms_tpu_torch.ops import step2d
+    env = setup(torch, *APPS[app]["full"], "float32", app=app)
+    args, _ = entry_inputs(torch, "fast_loop_res", *env, 5)
+    cfg = args[0]
+    no_visc = dataclasses.replace(cfg.mixing, visc2=0.0)
+    for name, c in (("all terms", cfg), ("no viscosity", cfg.replace(
+            mixing=no_visc)), ("no advection", cfg.replace(uv_adv=False)),
+                    ("no Coriolis", cfg.replace(uv_cor=False)),
+                    ("none of the three", cfg.replace(
+                        uv_adv=False, uv_cor=False, mixing=no_visc))):
+        ms = cuda_ms(torch, lambda: step2d.fast_loop_res(c, *args[1:]), 5)
+        print(f"{app} fast_loop_res {name}: {ms:.4f} ms [{CARD}]",
+              flush=True)
+    del env
+    torch.cuda.empty_cache()
 
 
 def profile_step(torch, app):
@@ -1050,9 +1099,9 @@ def profile_step(torch, app):
     ours = [e for e in rows if any(f"{k}<" in e.key for k in (
         "rho_kernel", "tadv_kernel", "rhs3d_kernel", "uv_solve_kernel",
         "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
-        "prsgrd_kernel", "uvmix_kernel", "flux_phase", "zeta_phase",
-        "mom_phase", "bulk_kernel", "kpp_kernel", "rot_div_geo_kernel",
-        "tridiag_kernel", "blocked_kernel"))]
+        "prsgrd_kernel", "uvmix_kernel", "half_step", "bulk_kernel",
+        "kpp_kernel", "rot_div_geo_kernel", "tridiag_kernel",
+        "blocked_kernel"))]
     ours_us = sum(e.self_device_time_total for e in ours)
     print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "
           f"time in {sum(e.count for e in ours)} launches", flush=True)

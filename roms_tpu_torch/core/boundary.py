@@ -23,7 +23,7 @@ def _check(lbc: LBC):
         if getattr(lbc, side) not in _KNOWN:
             raise NotImplementedError(
                 f"open boundary '{getattr(lbc, side)}' ({side}): the "
-                "obc module is ported with the UPWELLING slice or later")
+                "obc module is ROADMAP Queue 1 item 6")
 
 
 def _corners(f):

@@ -44,7 +44,7 @@ from .step3d_uv import step3d_uv
 from .weights import power_law_weights
 
 _LATER = {
-    "obc_fn": "open boundaries (UPWELLING slice or later)",
+    "obc_fn": "open boundaries (ROADMAP Queue 1 item 6)",
     "clm_fn": "climatology nudging (later slice)",
     "bio_fn": "biology (later slice)",
     "sources": "point sources (later slice)",
@@ -116,9 +116,13 @@ def _check_config(cfg: ModelConfig):
         raise NotImplementedError(
             "geopotential momentum mixing (MIX_GEO_UV): ROADMAP Queue 1 "
             "item 7")
-    if cfg.omega_implicit or cfg.wetdry or cfg.bc.ns_periodic:
+    if cfg.bc.ns_periodic:
         raise NotImplementedError(
-            "OMEGA_IMPLICIT / WET_DRY / NS-periodic grids: later slice")
+            "NS-periodic grids: ROADMAP Queue 1 item 4")
+    if cfg.omega_implicit:
+        raise NotImplementedError("OMEGA_IMPLICIT: ROADMAP Queue 1 item 7")
+    if cfg.wetdry:
+        raise NotImplementedError("WET_DRY: ROADMAP Queue 1 item 7")
 
 
 def kpp_route(cfg: ModelConfig) -> Optional[str]:

@@ -19,6 +19,12 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
+// x mod n in [0, n), for any x
+__device__ __forceinline__ int mod(int x, int n) {
+  const int r = x % n;
+  return r < 0 ? r + n : r;
+}
+
 inline int blocks_for(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
 }

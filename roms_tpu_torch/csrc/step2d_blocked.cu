@@ -78,33 +78,15 @@ constexpr int kBlockThreads = 256;
 // points per window edge that each half-step leaves dead for the next
 constexpr int kMargin = 3;
 
-// a block's window: point (j, i) is window row j, lane i; its global row
-// and lane come from per-block tables, clamped to the window; the BC maps
-// are offsets within the window (lane 0 holds lane Li-2, two lanes west
-// under the jnp.roll wrap; lane Li-1 holds lane 1, two lanes east)
-struct TileIx {
-  int Mj, Li, WJ, WI;
-  const int* rowg;    // global row of each window row
-  const int* colg;    // global lane of each window lane
-  __device__ int cj(int j) const { return min(max(j, 0), WJ - 1); }
-  __device__ int ci(int i) const { return min(max(i, 0), WI - 1); }
-  __device__ int grow(int j) const { return rowg[cj(j)]; }
-  __device__ int sidx(int j, int i) const {
-    return grow(j) * Li + colg[ci(i)];
+// kernel 12 keeps every field of the window in its scratch planes, and
+// each block stores its tile from there after its last substep
+struct TileIx : WindowIx {
+  __device__ int sidx(int, int j, int i) const { return gidx(j, i); }
+  template <typename T>
+  __device__ T* at(T* const* f, int id, int j, int i) const {
+    return f[id] + widx(j, i);
   }
-  __device__ int fidx(int j, int i) const { return cj(j) * WI + ci(i); }
-  __device__ int px(int i) const {
-    const int g = colg[ci(i)];
-    return g == 0 ? i - 2 : (g == Li - 1 ? i + 2 : i);
-  }
-  __device__ int ring_row(int j) const {
-    const int g = grow(j);
-    return g == 0 ? j + 1 : (g == Mj - 1 ? j - 1 : j);
-  }
-  __device__ int rv_row(int j) const {
-    const int g = grow(j);
-    return g == 1 ? j + 1 : (g == Mj - 1 ? j - 1 : j);
-  }
+  __device__ bool own(int, int) const { return true; }
 };
 
 // the launch's parameters
@@ -121,11 +103,6 @@ struct Params {
 
 template <typename T>
 using TileCtx = Ctx<T, TileIx>;
-
-__device__ __forceinline__ int mod(int x, int n) {
-  const int r = x % n;
-  return r < 0 ? r + n : r;
-}
 
 // a phase over the window less m points at each edge
 template <typename T, int PHASE, bool CORR>
@@ -153,12 +130,7 @@ blocked_kernel(const __grid_constant__ Params<T> p) {
   const int cj0 = blockIdx.y * p.TJ, ci0 = blockIdx.x * p.TI;
   int* rowg = tables;
   int* colg = tables + WJ;
-  for (int n = threadIdx.x; n < WJ + WI; n += blockDim.x) {
-    if (n < WJ)
-      rowg[n] = mod(cj0 - p.HJ + n, Mj);
-    else
-      colg[n - WJ] = mod(ci0 - p.HI + n - WJ, Li);
-  }
+  fill_tables(rowg, colg, cj0 - p.HJ, ci0 - p.HI, WJ, WI, Mj, Li);
   const size_t W = static_cast<size_t>(WJ) * WI;
   const size_t P = static_cast<size_t>(Mj) * Li;
   T* base = p.scratch +
@@ -180,8 +152,8 @@ blocked_kernel(const __grid_constant__ Params<T> p) {
   }
   resolve();
 
-  TileCtx<T> c{p.k, p.st, p.tab, planes, TileIx{Mj, Li, WJ, WI, rowg, colg},
-               0};
+  TileCtx<T> c{p.k, p.st, p.tab, planes,
+               TileIx{{Mj, Li, WJ, WI, rowg, colg}}, 0};
   // half-step h (predictor 2q, corrector 2q + 1) skips the kMargin * h
   // points at each window edge that earlier half-steps left dead
   for (int q = 0; q < p.ks; ++q) {

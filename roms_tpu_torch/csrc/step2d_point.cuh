@@ -1,16 +1,21 @@
 // The fast barotropic loop's per-point formulas (step2d_LF_AM3.h:163-3058,
 // core/step2d.py's predictor and corrector), shared by the two fast-loop
-// engines: the resident loop (step2d.cu, kernel 11: one thread per (j, i)
-// of the whole plane) and the j-blocked loop (step2d_blocked.cu, kernel
-// 12: one block per tile, on a window of the tile with halo).  Both
-// evaluate the same expressions in the same order, so they round alike.
+// engines: the resident loop (step2d.cu, kernel 11: one launch per
+// half-step, one block per tile, its intermediates in shared memory) and
+// the j-blocked loop (step2d_blocked.cu, kernel 12: KS substeps per
+// launch, one block per tile, on a window of the tile with halo in device
+// memory).  Both evaluate the same expressions in the same order, so they
+// round alike.
 //
 // The formulas are templated on an indexer Ix, which maps a point (j, i)
 // of the engine's own coordinates, whose neighbours are (j +- 1, i +- 1),
 // to
-//   sidx(j, i): the element of a read-only (Mj, Li) grid plane,
-//   fidx(j, i): the element of a carry or scratch plane,
+//   sidx(id, j, i): the element of read-only grid plane id,
+//   at(f, id, j, i): the address of carry or scratch field id, given the
+//          plane table f,
 //   grow(j): the global row (0 <= . < Mj),
+//   own(j, i): whether the point is one the block stores (the averages
+//          and the predictor's rhs_zeta are written only there),
 // and applies the lateral BCs' index maps from global indices, as
 // points of its own coordinates:
 //   px(i): the lane an array holds after st.periodic_x (lane 0 holds
@@ -25,6 +30,53 @@
 
 namespace roms {
 namespace step2d {
+
+// A block's window: a tile of the grid with a halo.  Point (j, i) is
+// window row j, lane i; its global row and lane come from per-block
+// tables (fill_tables), clamped to the window, so points near the
+// window's edge read clamped neighbours and hold dead values, which the
+// halo keeps away from the tile.  The BC maps are offsets within the
+// window: lane 0 holds lane Li-2, two lanes west under the jnp.roll
+// wrap; lane Li-1 holds lane 1, two lanes east.
+struct WindowIx {
+  int Mj, Li, WJ, WI;
+  const int* rowg;    // global row of each window row
+  const int* colg;    // global lane of each window lane
+  __device__ int cj(int j) const { return min(max(j, 0), WJ - 1); }
+  __device__ int ci(int i) const { return min(max(i, 0), WI - 1); }
+  __device__ int grow(int j) const { return rowg[cj(j)]; }
+  // the element of an (Mj, Li) plane in device memory
+  __device__ int gidx(int j, int i) const {
+    return grow(j) * Li + colg[ci(i)];
+  }
+  __device__ int px(int i) const {
+    const int g = colg[ci(i)];
+    return g == 0 ? i - 2 : (g == Li - 1 ? i + 2 : i);
+  }
+  // the element of a window plane
+  __device__ int widx(int j, int i) const { return cj(j) * WI + ci(i); }
+  __device__ int ring_row(int j) const {
+    const int g = grow(j);
+    return g == 0 ? j + 1 : (g == Mj - 1 ? j - 1 : j);
+  }
+  __device__ int rv_row(int j) const {
+    const int g = grow(j);
+    return g == 1 ? j + 1 : (g == Mj - 1 ? j - 1 : j);
+  }
+};
+
+// the window tables of a block whose window starts at global (j0, i0),
+// wrapped as jnp.roll wraps
+__device__ __forceinline__ void fill_tables(int* rowg, int* colg, int j0,
+                                            int i0, int WJ, int WI, int Mj,
+                                            int Li) {
+  for (int n = threadIdx.x; n < WJ + WI; n += blockDim.x) {
+    if (n < WJ)
+      rowg[n] = mod(j0 + n, Mj);
+    else
+      colg[n - WJ] = mod(i0 + n - WJ, Li);
+  }
+}
 
 // planes of the carry + scratch buffer
 enum Plane {
@@ -111,8 +163,8 @@ struct Consts {
 // What the per-point formulas see: the launch's constants, grid planes
 // and scalar table by reference (each kernel takes them as one
 // __grid_constant__ parameter, read in place rather than copied into
-// every thread), the plane of each carry and scratch field, the indexer
-// and the substep (0-based, of the whole loop).
+// every thread), the plane table of the carry and scratch fields, the
+// indexer and the substep (0-based, of the whole loop).
 template <typename T, typename Ix>
 struct Ctx {
   const Consts<T>& k;
@@ -125,9 +177,11 @@ struct Ctx {
   __device__ int Mj() const { return ix.Mj; }
   __device__ int px(int i) const { return ix.px(i); }
   __device__ int ring_row(int j) const { return ix.ring_row(j); }
-  __device__ T S(int id, int j, int i) const { return st[id][ix.sidx(j, i)]; }
-  __device__ T V(int id, int j, int i) const { return f[id][ix.fidx(j, i)]; }
-  __device__ T& F(int id, int j, int i) const { return f[id][ix.fidx(j, i)]; }
+  __device__ T S(int id, int j, int i) const {
+    return st[id][ix.sidx(id, j, i)];
+  }
+  __device__ T V(int id, int j, int i) const { return *ix.at(f, id, j, i); }
+  __device__ T& F(int id, int j, int i) const { return *ix.at(f, id, j, i); }
   __device__ T tab_at(int q) const { return tab[s * 7 + q]; }
   __device__ bool first() const { return tab[s * 7] != T(0); }
 };
@@ -282,7 +336,7 @@ struct Rhs {
     return m * m;
   }
 
-  __device__ void eval(int j, int i, T& ru, T& rv) const {
+  __device__ __forceinline__ void eval(int j, int i, T& ru, T& rv) const {
     ru = pg(j, i, 0, 1, ON_U);
     rv = pg(j, i, 1, 0, OM_V);
     if (c.k.uv_adv) {
@@ -335,7 +389,7 @@ struct Rhs {
 
 // DUon, DVom of the flux state (_flux_state) and the fast-time averages
 template <typename T, bool CORR, typename C>
-__device__ void flux_point(const C& c, int j, int i) {
+__device__ __forceinline__ void flux_point(const C& c, int j, int i) {
   const int Zf = CORR ? ZETA_P : ZETA;
   const int ii = c.px(i);
   auto Dr = [&](int jj, int i2) { return c.V(Zf, jj, i2) + c.S(H, jj, i2); };
@@ -347,6 +401,7 @@ __device__ void flux_point(const C& c, int j, int i) {
       c.S(OM_V, j, ii));
   c.F(DUON, j, i) = DU;
   c.F(DVOM, j, i) = DV;
+  if (!c.ix.own(j, i)) return;
   if (CORR) {
     const T A2c = c.tab_at(3);
     c.F(DU2, j, i) = c.V(DU2, j, i) + mul_rn(A2c, DU);
@@ -370,7 +425,8 @@ __device__ void flux_point(const C& c, int j, int i) {
 
 // free surface: pre-BC zeta_new and zwrk at (j, i); predictor rhs_zeta
 template <typename T, bool CORR, typename C>
-__device__ void zeta_raw(const C& c, int j, int i, T& zn, T& zw, T& rhs) {
+__device__ __forceinline__ void zeta_raw(const C& c, int j, int i, T& zn,
+                                         T& zw, T& rhs) {
   rhs = (c.V(DUON, j, i) - c.V(DUON, j, i + 1)) +
         (c.V(DVOM, j, i) - c.V(DVOM, j + 1, i));
   const T pmn = c.S(PM, j, i) * c.S(PN, j, i);
@@ -391,10 +447,10 @@ __device__ void zeta_raw(const C& c, int j, int i, T& zn, T& zw, T& rhs) {
 }
 
 template <typename T, bool CORR, typename C>
-__device__ void zeta_point(const C& c, int j, int i) {
+__device__ __forceinline__ void zeta_point(const C& c, int j, int i) {
   T zn, zw, rhs;
   zeta_raw<T, CORR>(c, j, i, zn, zw, rhs);
-  if (!CORR) c.F(RZ_M, j, i) = rhs;
+  if (!CORR && c.ix.own(j, i)) c.F(RZ_M, j, i) = rhs;
   c.F(ZWRK, j, i) = zw;
   // bc_rho: ring rows copy their inner neighbour, lanes the periodic ones
   const int sj = c.ring_row(j);
@@ -411,7 +467,7 @@ struct MomPt {
 };
 
 template <typename T, bool CORR, typename C>
-__device__ MomPt<T> mom_raw(const C& c, int j, int i) {
+__device__ __forceinline__ MomPt<T> mom_raw(const C& c, int j, int i) {
   const Rhs<T, C> R{c, CORR ? UBAR_P : UBAR, CORR ? VBAR_P : VBAR, DUON, DVOM,
                     CORR ? ZETA_P : ZETA};
   MomPt<T> p;
@@ -479,9 +535,11 @@ __device__ MomPt<T> mom_raw(const C& c, int j, int i) {
   return p;
 }
 
+// the predictor's outputs at the point itself: rhs + forcing, and on the
+// first substep the forcing rufrc_c
 template <typename T, bool CORR, typename C>
-__device__ void mom_point(const C& c, int j, int i) {
-  const MomPt<T> own = mom_raw<T, CORR>(c, j, i);
+__device__ __forceinline__ void mom_store_own(const C& c, int j, int i,
+                                              const MomPt<T>& own) {
   if (!CORR) {
     c.F(RU_M, j, i) = own.ru;
     c.F(RV_M, j, i) = own.rv;
@@ -490,18 +548,38 @@ __device__ void mom_point(const C& c, int j, int i) {
       c.F(RVFRC_N, j, i) = own.fv;
     }
   }
-  // bc_u: closed N/S walls hold gamma2 * the inner row; bc_v: rows 0, 1
-  // and Mj-1 zero; both take the periodic lanes
+}
+
+// bc_u: closed N/S walls hold gamma2 * the inner row; bc_v: rows 0, 1
+// and Mj-1 zero; both take the periodic lanes.  un(j, i) and vn(j, i)
+// give the masked, pre-BC ubar and vbar of the point the BC copies from.
+template <typename T, bool CORR, typename C, typename U, typename V>
+__device__ __forceinline__ void mom_bc(const C& c, int j, int i, U un,
+                                       V vn) {
   const int sj = c.ring_row(j);
   const int si = c.px(i);
-  T u = (sj == j && si == i) ? own.un : mom_raw<T, CORR>(c, sj, si).un;
+  T u = un(sj, si);
   if (sj != j) u = c.k.gamma2 * u;
   T v = T(0);
   const int g = c.ix.grow(j);
-  if (g != 0 && g != 1 && g != c.Mj() - 1)
-    v = si == i ? own.vn : mom_raw<T, CORR>(c, j, si).vn;
+  if (g != 0 && g != 1 && g != c.Mj() - 1) v = vn(j, si);
   c.F(CORR ? UBAR_PREV : UBAR_P, j, i) = u;
   c.F(CORR ? VBAR_PREV : VBAR_P, j, i) = v;
+}
+
+// momentum at one point, the BC sources evaluated where they are needed
+template <typename T, bool CORR, typename C>
+__device__ __forceinline__ void mom_point(const C& c, int j, int i) {
+  const MomPt<T> own = mom_raw<T, CORR>(c, j, i);
+  mom_store_own<T, CORR>(c, j, i, own);
+  mom_bc<T, CORR>(
+      c, j, i,
+      [&](int sj, int si) {
+        return (sj == j && si == i) ? own.un : mom_raw<T, CORR>(c, sj, si).un;
+      },
+      [&](int sj, int si) {
+        return si == i ? own.vn : mom_raw<T, CORR>(c, sj, si).vn;
+      });
 }
 
 }  // namespace step2d

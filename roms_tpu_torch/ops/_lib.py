@@ -31,8 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launch counts of the eighteen kernel entry points (one per wrapper
-# call; fast_loop_res launches ops/step2d.PHASES CUDA kernels a substep;
-# fast_loop_blocked counts each of its launches, one per chunk of
+# call; fast_loop_res launches ops/step2d.HALF_STEPS CUDA kernels a
+# substep; fast_loop_blocked counts each of its launches, one per chunk of
 # ops/step2d.chunk_schedule; tridiag is csrc/tridiag.cu's
 # roms_tridiag_f32/_f64)
 launches = {name: 0 for name in (
@@ -117,15 +117,27 @@ def build() -> Path:
 
 
 def ptxas_report() -> str:
-    """The per-kernel register / spill lines of the last build."""
+    """The per-kernel register, spill and static shared memory lines of
+    the last build, each under the kernel's (demangled) name."""
     if build_dir is None:
         return ""
     lines = []
     for log in sorted(build_dir.glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                lines.append(f"{log.stem}: {line.strip()}")
+            if "Compiling entry function" in line:
+                name = _demangle(line.split("'")[1])
+                lines.append(f"{log.stem}: {name}")
+            elif "registers" in line or "spill" in line:
+                lines.append(f"{log.stem}:   {line.strip()}")
     return "\n".join(lines)
+
+
+def _demangle(name: str) -> str:
+    filt = shutil.which("c++filt")
+    if filt is None:
+        return name
+    return subprocess.run([filt, name], capture_output=True,
+                          text=True).stdout.strip() or name
 
 
 def lib():
@@ -158,6 +170,17 @@ def check(rc: int, name: str):
     if rc != 0:
         msg = lib().roms_cuda_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
+
+
+# shared memory one block may use on the H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+
+
+def even_tiles(Mj: int, Li: int, tile):
+    """(TJ, TI): tiles of at most `tile` (rows, lanes), as few as will
+    do, evened out over an (Mj, Li) grid."""
+    nj, ni = -(-Mj // tile[0]), -(-Li // tile[1])
+    return -(-Mj // nj), -(-Li // ni)
 
 
 # deepest column the column kernels take (csrc/common.cuh kNmax)

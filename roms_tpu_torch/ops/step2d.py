@@ -3,8 +3,11 @@ corrector substeps, as two CUDA engines over one set of per-point
 formulas (csrc/step2d_point.cuh).
 
 - `fast_loop_res` (csrc/step2d.cu) replaces roms_tpu/ops/
-  pallas_step2d.py `fast_loop_pallas_res`: all substeps in one call, six
-  whole-plane phase kernels per substep, the scalar table uploaded once.
+  pallas_step2d.py `fast_loop_pallas_res`: all substeps in one call, one
+  CUDA launch per half-step (predictor, corrector), each block a tile
+  that runs the half-step's phases on a window, the intermediates that
+  later phases read with neighbours in shared memory, the scalar table
+  uploaded once.
 - `fast_loop_blocked` (csrc/step2d_blocked.cu) replaces
   `fast_loop_pallas`, the j-blocked engine: one launch per chunk of
   `chunk_schedule(nfast)` substeps (KS = 2, KS = 1 for an odd
@@ -33,10 +36,17 @@ STATICS = ("h", "pm", "pn", "rmask", "umask", "vmask", "fomn", "dndx",
            "dmde", "on_u", "om_v", "pmon_r", "pnom_r", "pmon_p", "pnom_p",
            "on_r", "om_r", "on_p", "om_p", "pmask", "visc2_r", "visc2_p")
 NPLANE = 27      # 16 carry planes + 11 scratch planes (enum Plane)
-PHASES = 6       # kernel 11's CUDA launches per substep
+HALF_STEPS = 2   # kernel 11's CUDA launches per substep
 # kernel 12's tile (rows, lanes): the fastest of the tiles timed on the
 # H100 at both full-width channel shapes (PERF.md)
 TILE = (24, 96)
+# kernel 11's tile by element size: float32 374 and 390 blocks at the
+# two full-width channel shapes, three an SM (396 slots on the H100's 132
+# SMs), the fastest of the tiles timed there (PERF.md); float64 windows
+# take twice the shared memory a point
+TILE_RES = {4: (16, 96), 8: (16, 64)}
+# kernel 11's window planes in shared memory (csrc/step2d.cu kWin)
+WIN_PLANES = 4
 
 
 def covers(cfg) -> bool:
@@ -88,11 +98,30 @@ def halo(ks: int):
     return 6 * ks + 1, 6 * ks + 2
 
 
+def half_step_halo(Li: int):
+    """(rows, lanes) per window edge that keep kernel 11's tile exact
+    over one half-step: 3 points, one row more for the wall copies, two
+    lanes more for the periodic lanes (`halo` for half a substep).  On a
+    4-lane grid the periodic copies chain (lane Li-4 is lane 0, two lanes
+    west of lane Li-2), which takes two lanes more."""
+    return 3 + 1, 3 + 2 + 2 * (Li == 4)
+
+
 def tiling(Mj: int, Li: int):
     """(TJ, TI) of kernel 12's tiles: about TILE, evened out over the
     grid."""
-    nj, ni = -(-Mj // TILE[0]), -(-Li // TILE[1])
-    return -(-Mj // nj), -(-Li // ni)
+    return _lib.even_tiles(Mj, Li, TILE)
+
+
+def res_launch_shape(Mj: int, Li: int, itemsize: int):
+    """Kernel 11's (TJ, TI, HJ, HI, blocks, dynamic shared memory bytes)
+    at an (Mj, Li) grid and element size (csrc/step2d.cu smem_bytes)."""
+    TJ, TI = _lib.even_tiles(Mj, Li, TILE_RES[itemsize])
+    HJ, HI = half_step_halo(Li)
+    WJ, WI = TJ + 2 * HJ, TI + 2 * HI
+    blocks = -(-Mj // TJ) * -(-Li // TI)
+    return (TJ, TI, HJ, HI, blocks,
+            (WIN_PLANES * WJ * WI + 2 * TJ * TI) * itemsize + 4 * (WJ + WI))
 
 
 def _kernel_inputs(name, cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0,
@@ -162,11 +191,13 @@ def _launch_res(*args):
     buf = torch.empty((NPLANE, Mj, Li), dtype=carry.dtype,
                       device=carry.device)
     buf[:16].copy_(carry)
+    TJ, TI, HJ, HI, _, _ = res_launch_shape(Mj, Li, carry.element_size())
     final = (ctypes.c_int * 16)()
     P, I = _lib.P, _lib.I
-    fn = _lib.func(f"roms_fast_loop_{sfx}", [P, P, P, P, I, I, I, P, I, P])
+    fn = _lib.func(f"roms_fast_loop_{sfx}",
+                   [P, P, P, P, I, I, I, I, I, I, I, P, I, P])
     rc = fn(statp, _lib.ptr(buf), _lib.ptr(table), final, nfast, Mj, Li,
-            consts, flags, P(stream))
+            TJ, TI, HJ, HI, consts, flags, P(stream))
     _lib.launches["fast_loop_res"] += 1
     _lib.check(rc, "fast_loop_res")
     return _carry([buf[final[k]] for k in range(16)], ru0_prev, rv0_prev)

@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
-from roms_tpu_torch.ops import _lib, step2d, tadv  # noqa: E402
+from roms_tpu_torch.ops import _lib, hmix, step2d, tadv  # noqa: E402
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
@@ -131,3 +131,83 @@ def test_blocked_engine_step_launches_kernel_12_only():
     for f in ("zeta", "ubar", "vbar", "u", "v", "t"):
         a, b = getattr(runs[0], f), getattr(runs[1], f)
         assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max()), f
+
+
+# (Lm, Mm, N) of kernel 11's shape cases (Mj = Mm + 2, Li = Lm + 2):
+# the smallest grid the wrapper takes, Mj = Li = 4, and grids whose Mj
+# and Li are not multiples of either type's tile (ops/step2d.py TILE_RES)
+FAST_LOOP_SHAPES = [("upwelling", (2, 2, 4)), ("upwelling", (73, 33, 4)),
+                    ("benchmark", (45, 19, 4))]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("app,shape", FAST_LOOP_SHAPES)
+def test_fast_loop_res_at_ragged_and_minimal_shapes(app, shape, dtype):
+    """Kernel 11 (one launch per half-step, tiles with halo in shared
+    memory) against its plain loop, from the first substep (iic = 0) and
+    a later one, where ragged last tiles and the periodic lanes and
+    walls of a one-tile grid meet."""
+    _need_card()
+    env = cs.setup(torch, *shape, dtype, app=app)
+    for iic in (0, 5):
+        args, _ = cs.entry_inputs(torch, "fast_loop_res", *env, iic)
+        before = _lib.launches["fast_loop_res"]
+        rel, _ = cs.compare(torch, "fast_loop_res", args, dtype)
+        tol = cs.TOL_F64["fast_loop_res"] if dtype == "float64" \
+            else cs.TOL["float32"]
+        assert rel <= tol, (app, shape, dtype, iic, rel)
+        assert _lib.launches["fast_loop_res"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_fast_loop_res_bitwise_equals_kernel_12(dtype):
+    """The two fast-loop engines evaluate one set of per-point formulas
+    in the same order: every carry field is bitwise equal at a ragged
+    shape."""
+    _need_card()
+    env = cs.setup(torch, 73, 33, 4, dtype, app="upwelling")
+    args, _ = cs.entry_inputs(torch, "fast_loop_res", *env, 5)
+    res = cs.outputs(step2d.fast_loop_res(*args))
+    blocked = cs.outputs(step2d.fast_loop_blocked(*args))
+    for k, (a, b) in enumerate(zip(res, blocked)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("closed", [False, True])
+@pytest.mark.parametrize("NT", [1, 3])
+@pytest.mark.parametrize("shape", [(37, 19, 2), (1, 1, 2)])
+def test_rot_div_geo_tracers_sides_and_shapes(shape, NT, closed, dtype):
+    """Kernel 16 (column marching over shared-memory tiles, every tracer
+    in one pass) against its plain version at one and three tracers, N =
+    2, EW-periodic and closed sides, at a grid ragged against both
+    types' tiles (Mj = 21, Li = 39) and at the smallest it takes (Mj =
+    Li = 3)."""
+    _need_card()
+    from roms_tpu_torch.config import LBC, BoundaryConfig
+    env = cs.setup(torch, *shape, dtype, app="benchmark")
+    cfg, grid, t, d2, Hz, z_r = cs.entry_inputs(torch, "rot_div_geo", *env,
+                                                5)[0]
+    if closed:
+        cfg = cfg.replace(bc=BoundaryConfig.uniform(LBC()))
+    rnd = env[3]
+    qs = torch.stack([t[n % 2] + 0.1 * rnd(*t.shape[1:]) for n in range(NT)])
+    d2s = torch.stack([d2[n % 2] * (1.0 + 0.5 * n) for n in range(NT)])
+    before = _lib.launches["rot_div_geo"]
+    rel, _ = cs.compare(torch, "rot_div_geo", (cfg, grid, qs, d2s, Hz, z_r),
+                        dtype)
+    assert rel <= cs.TOL[dtype], (shape, NT, closed, dtype, rel)
+    assert _lib.launches["rot_div_geo"] == before + 1
+
+
+def test_rot_div_geo_raises_when_its_tile_exceeds_shared_memory():
+    """A launch the card refuses (40 float64 tracers need more than a
+    block's 227 KB of shared memory) raises through _lib.check."""
+    _need_card()
+    env = cs.setup(torch, 10, 8, 2, "float64", app="benchmark")
+    cfg, grid, t, d2, Hz, z_r = cs.entry_inputs(torch, "rot_div_geo", *env,
+                                                5)[0]
+    qs, d2s = t[:1].repeat(40, 1, 1, 1), d2[:1].repeat(40, 1, 1)
+    assert hmix.launch_shape(40, *t.shape[2:], 8)[3] > _lib.SMEM_PER_BLOCK
+    with pytest.raises(RuntimeError, match="rot_div_geo"):
+        hmix.rot_div_geo(cfg, grid, qs, d2s, Hz, z_r)

@@ -18,7 +18,7 @@ import torch
 
 from roms_tpu.core import stepping
 from roms_tpu.functionals import idealized as ia
-from roms_tpu_torch.config import LBC, RADIATION
+from roms_tpu_torch.config import LBC, RADIATION, BoundaryConfig
 from roms_tpu_torch.core import stepping as tstepping
 from roms_tpu_torch.functionals import idealized as tia
 
@@ -86,7 +86,15 @@ def test_port_imports_neither_jax_nor_roms_tpu():
 UNPORTED = sorted(tstepping._LATER) + [
     "vmix=lmd", "vmix=gls", "vmix=my25", "prsgrd=fv", "step2d=fb",
     "step_diag", "step_diag_uv", "ddmix=1", "mix_iso_ts=1", "mix_geo_uv=1",
-    "smagorinsky=1"]
+    "smagorinsky=1", "omega_implicit=1", "wetdry=1", "bc=ns_periodic",
+    "bc=radiation"]
+# refusals that name the ROADMAP item that ports them
+ROADMAP_ITEM = {"obc_fn": "ROADMAP Queue 1 item 6",
+                "bc=radiation": "open boundary 'radiation' .*ROADMAP Queue 1 "
+                                "item 6",
+                "bc=ns_periodic": "NS-periodic grids: ROADMAP Queue 1 item 4",
+                "omega_implicit=1": "OMEGA_IMPLICIT: ROADMAP Queue 1 item 7",
+                "wetdry=1": "WET_DRY: ROADMAP Queue 1 item 7"}
 
 
 @pytest.mark.parametrize("what", UNPORTED)
@@ -100,7 +108,7 @@ def test_unported_hooks_raise(what):
     # the open TKE boundary, raised by the closures' boundary hook
     tke_bc = what in ("vmix=gls", "vmix=my25")
     with pytest.raises(NotImplementedError, match="open boundary 'radiation'"
-                       if tke_bc else None) as exc:
+                       if tke_bc else ROADMAP_ITEM.get(what)) as exc:
         if what.startswith("step_diag"):
             model = tstepping.Model(cfg, grid, forcing_fn)
             getattr(model, what)(tia.double_gyre_initial(cfg, grid))
@@ -119,6 +127,14 @@ def test_unported_hooks_raise(what):
                 # boundary layer (LMD_BKPP) is still to come
                 cfg = cfg.replace(mixing=dataclasses.replace(
                     cfg.mixing, vmix=val, bkpp=val == "lmd"))
+            elif field == "bc":
+                lbc = LBC.ns_periodic() if val == "ns_periodic" \
+                    else LBC.same(val)
+                cfg = cfg.replace(bc=BoundaryConfig.uniform(lbc))
+                tstepping.Model(cfg, grid, forcing_fn).step(
+                    tia.double_gyre_initial(cfg, grid))
+            elif field in ("omega_implicit", "wetdry"):
+                cfg = cfg.replace(**{field: True})
             elif hasattr(cfg.mixing, field):
                 cfg = cfg.replace(mixing=dataclasses.replace(
                     cfg.mixing, vmix="lmd", **{field: bool(int(val))}))
