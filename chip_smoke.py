@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --profile  # only: where the full-width steps'
-                                     # time goes (CUDA events, profiler)
-                                     # and the fast loop's by 2D term
+                                     # time goes (CUDA events, profiler),
+                                     # the fast loop's by 2D term and
+                                     # rhs3d's and uv_solve's time by
+                                     # launch shape
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
@@ -25,7 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      MY2.5 step at the same sizes; the j-blocked fast loop (kernel 12) on
      the UPWELLING and BENCHMARK3 states (the latter's nfast = 29 odd),
      float64 rel <= 1e-11, with its difference from the resident fast
-     loop (kernel 11) on the same inputs;
+     loop (kernel 11) on the same inputs, and on 4-lane channels (Li = 4,
+     Mj = 4 and 5, 42 substeps); the redesigned rhs3d (kernel 3) and
+     uv_solve (kernel 4) on ragged grids and at minimal depths (N = 3 and
+     4), closed and EW-periodic, uv_solve from iic 0, 1 and 5, and their
+     float64 launches over a block's shared memory refused;
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
@@ -119,6 +125,7 @@ def main():
             profile_step(torch, app)
         for app in ("benchmark", "upwelling"):
             fast_loop_terms(torch, app)
+            launch_shapes(torch, app)
         return 0
     kernel_phase_checks(torch)
     for app in APPS:
@@ -591,9 +598,72 @@ def kernel_phase_checks(torch):
                               f"{rel:.3e} max abs {abs_err:.3e}", flush=True)
                 del env
                 torch.cuda.empty_cache()
+    redesign_checks(torch)
     if FAILURES:
         fail("kernel phase:\n  " + "\n  ".join(FAILURES))
     _lib.reset_launches()
+
+
+# (app, (Lm, Mm, N)) of the redesigned kernels 3 and 4: grids that no
+# tile divides (Mj = 21, Li = 39 and 47; DOUBLE_GYRE's Mj = 63), the
+# smallest channel (Mj = Li = 4) and the minimal depths
+REDESIGN_SHAPES = [("upwelling", (37, 19, 3)), ("benchmark", (45, 19, 4)),
+                   ("upwelling", (2, 2, 3)), ("double_gyre", (30, 61, 4))]
+
+
+def redesign_checks(torch):
+    """Kernels 3 and 4 at REDESIGN_SHAPES with the app's lanes and with
+    closed walls, uv_solve from iic 0, 1 and 5; kernel 12 on 4-lane
+    channels; the float64 launches over shared memory refused."""
+    from roms_tpu_torch.config import LBC, BoundaryConfig
+    from roms_tpu_torch.ops import rhs3d, uv
+    for app, (Lm, Mm, N) in REDESIGN_SHAPES:
+        for dtype in ("float64", "float32"):
+            env = setup(torch, Lm, Mm, N, dtype, app=app)
+            for name in ("rhs3d_momentum", "uv_solve"):
+                for iic in (0, 1, 5) if name == "uv_solve" else (5,):
+                    args, _ = entry_inputs(torch, name, *env, iic)
+                    for sides in ("app", "closed"):
+                        if sides == "closed":
+                            args = (args[0].replace(
+                                bc=BoundaryConfig.uniform(LBC())),) + args[1:]
+                        rel, abs_err = compare(torch, name, args, dtype)
+                        print(f"kernel redesign {app:11s} {name:15s} {dtype} "
+                              f"{sides:6s} N={N} Mj={Mm + 2} Li={Lm + 2} "
+                              f"iic={iic}: max rel {rel:.3e} max abs "
+                              f"{abs_err:.3e}", flush=True)
+            del env
+    for Mm in (2, 3):
+        env = setup(torch, 2, Mm, 4, "float64", app="upwelling")
+        for iic in (0, 5):
+            args, _ = entry_inputs(torch, "fast_loop_blocked", *env, iic)
+            rel, abs_err = compare(torch, "fast_loop_blocked", args,
+                                   "float64")
+            print(f"kernel 4-lane channel fast_loop_blocked float64 Mj="
+                  f"{Mm + 2} Li=4 nfast={args[2]} iic={iic}: max rel "
+                  f"{rel:.3e} max abs {abs_err:.3e}", flush=True)
+    env = setup(torch, 10, 8, 120, "float64", app="upwelling")
+    args, _ = entry_inputs(torch, "uv_solve", *env, 5)
+    refusals = [("uv_solve N=120", lambda: uv.uv_solve(*args))]
+    env = setup(torch, 126, 62, 3, "float64", app="upwelling")
+    args3, _ = entry_inputs(torch, "rhs3d_momentum", *env, 5)
+
+    def rhs3d_big_tile():
+        tile = rhs3d.TILE
+        rhs3d.TILE = (64, 128)
+        try:
+            return rhs3d.rhs3d_momentum(*args3)
+        finally:
+            rhs3d.TILE = tile
+    refusals.append(("rhs3d_momentum tile (64, 128)", rhs3d_big_tile))
+    for what, call in refusals:
+        try:
+            call()
+        except ValueError as exc:
+            print(f"kernel float64 {what}: refused ({exc})", flush=True)
+        else:
+            FAILURES.append(f"{what} float64: launched over shared memory")
+    del env
 
 
 def engine_diff(torch, args):
@@ -1003,6 +1073,23 @@ def kernel_table(torch, app, counts):
                   f"read over windows {halo:.3f}x the tiles (halo from L2); "
                   f"the coefficient planes built in the kernel, no PyTorch "
                   f"operation in the wrapper", flush=True)
+        if name == "rhs3d_momentum":
+            from roms_tpu_torch.ops.rhs3d import launch_shape
+            TJ, TI, halo, blocks, smem = launch_shape(
+                *outs[0].shape[1:], outs[0].element_size())
+            win = (TJ + 2 * halo) * (TI + 2 * halo) / (TJ * TI)
+            print(f"{app} rhs3d_momentum tile {TJ}x{TI}, halo {halo}, "
+                  f"{blocks} blocks, {smem} B dynamic shared memory a "
+                  f"block; window {win:.3f}x the tile (halo from L2)",
+                  flush=True)
+        if name == "uv_solve":
+            from roms_tpu_torch.ops.uv import solve_launch_shape
+            N, Mj, Li = outs[0].shape
+            B, blocks, smem = solve_launch_shape(N, Mj, Li,
+                                                 outs[0].element_size())
+            print(f"{app} uv_solve {B} threads a block, {blocks} blocks (u "
+                  f"and v), {smem} B dynamic shared memory a block "
+                  f"({4 * N - 2} values a thread)", flush=True)
         if name == "fast_loop_blocked":
             # its own design's floor: each launch reads the carry and the
             # statics and writes the carry
@@ -1037,6 +1124,52 @@ def fast_loop_terms(torch, app):
         ms = cuda_ms(torch, lambda: step2d.fast_loop_res(c, *args[1:]), 5)
         print(f"{app} fast_loop_res {name}: {ms:.4f} ms [{CARD}]",
               flush=True)
+    del env
+    torch.cuda.empty_cache()
+
+
+# the launch shapes timed against the chosen ones (ops/rhs3d.py TILE,
+# ops/uv.py SOLVE_THREADS)
+RHS3D_TILES = ((8, 32), (16, 16), (4, 64), (8, 16))
+UV_SOLVE_THREADS = (64, 96, 128, 192)
+
+
+def launch_shapes(torch, app):
+    """rhs3d's time with each tile of RHS3D_TILES (and with its advection
+    or Coriolis term off) and uv_solve's with each block size of
+    UV_SOLVE_THREADS at the app's full width, float32, each output bitwise
+    against the chosen shape's."""
+    from roms_tpu_torch.ops import rhs3d, uv
+    env = setup(torch, *APPS[app]["full"], "float32", app=app)
+    for name, shapes, get, put in (
+            ("rhs3d_momentum", RHS3D_TILES, lambda: rhs3d.TILE,
+             lambda x: setattr(rhs3d, "TILE", x)),
+            ("uv_solve", UV_SOLVE_THREADS, lambda: uv.SOLVE_THREADS[4],
+             lambda x: uv.SOLVE_THREADS.__setitem__(4, x))):
+        args, _ = entry_inputs(torch, name, *env, 5)
+        kern = entry_fns(name)[0]
+        chosen = get()
+        ref = outputs(kern(*args))
+        for shape in shapes:
+            put(shape)
+            try:
+                same = all(torch.equal(a, b) for a, b in zip(
+                    outputs(kern(*args)), ref))
+                ms = cuda_ms(torch, lambda: kern(*args), 20)
+            finally:
+                put(chosen)
+            print(f"{app} {name} launch shape {shape}"
+                  f"{' (chosen)' if shape == chosen else ''}: {ms:.4f} ms "
+                  f"[{CARD}]", flush=True)
+            if not same:
+                fail(f"{app} {name}: launch shape {shape} changed the output")
+        if name == "rhs3d_momentum":
+            cfg = args[0]
+            for what, c in (("no advection", cfg.replace(uv_adv=False)),
+                            ("no Coriolis", cfg.replace(uv_cor=False))):
+                ms = cuda_ms(torch, lambda: kern(c, *args[1:]), 20)
+                print(f"{app} rhs3d_momentum {what}: {ms:.4f} ms [{CARD}]",
+                      flush=True)
     del env
     torch.cuda.empty_cache()
 

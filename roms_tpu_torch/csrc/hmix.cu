@@ -390,7 +390,10 @@ int launch(const void* const* in, void* out, int NT, int N, int Mj, int Li,
   const cudaError_t err = cudaFuncSetAttribute(
       rot_div_geo_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // this launch's error, not the next one's
+    return static_cast<int>(err);
+  }
   const dim3 grid((Li + TI - 1) / TI, (Mj + TJ - 1) / TJ);
   rot_div_geo_kernel<T><<<grid, kBlockThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(p);

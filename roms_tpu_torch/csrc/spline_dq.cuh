@@ -1,5 +1,7 @@
-// Parabolic-spline implicit vertical flux solve of one column, shared by
-// the momentum corrector (uv.cu) and tracer diffusion (vdiff.cu).
+// Parabolic-spline implicit vertical flux solve of one column, for tracer
+// diffusion (vdiff.cu).  The momentum corrector's uv_solve (uv.cu) runs
+// the same solve as a streaming sweep with its state in shared memory and
+// no stack frame; vdiff is the next to take that sweep.
 //
 // Translates roms_tpu/ops/pallas_uv.py:59 _spline_dq (used by
 // pallas_vdiff.py:27 too), itself ops/tridiag.py spline_flux_solve:

@@ -246,7 +246,10 @@ int run(const void* const* stat, void* buf, const void* table, int* final_idx,
     err = cudaFuncSetAttribute(half_step<T, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // this launch's error, not the next one's
+    return static_cast<int>(err);
+  }
 
   Slots slot;
   slot.reset();

@@ -38,15 +38,19 @@
 // point and 2 east and north (the C4 advection's lap of the fluxes), so a
 // substep's dependence reaches 6 points per edge.  The ring copies of the
 // lateral BCs reach one row (bc_rho, bc_u) or two lanes (the periodic
-// lanes, lane 0 <- Li-2) further, once.  So a window of HJ = 6 KS + 1 rows
-// and HI = 6 KS + 2 lanes per edge (ops/step2d.py halo) leaves the tile's
-// own points exact; points nearer the window's edge read clamped
-// neighbours and hold dead values, which no tile point reads.  Half-step h
-// skips the outer 3 h points of each edge, which earlier half-steps have
-// already left dead.  (Checked against the plain loop with the CUDA
-// source compiled for the CPU: exact at every tiling tried, still exact
-// with a halo one point short, wrong with one two points short or with a
-// margin of 5.)
+// lanes, lane 0 <- Li-2) further, once.  On a 4-lane grid the periodic
+// copies chain (lane Li-4 is lane 0, two lanes west of lane Li-2), which
+// takes two lanes more, as in kernel 11's half_step_halo.  So a window of
+// HJ = 6 KS + 1 rows and HI = 6 KS + 2 (+ 2 when Li = 4) lanes per edge
+// (ops/step2d.py halo) leaves the tile's own points exact; points nearer
+// the window's edge read clamped neighbours and hold dead values, which no
+// tile point reads.  Half-step h skips the outer 3 h points of each edge,
+// which earlier half-steps have already left dead.  (Checked against the
+// plain loop with the CUDA source compiled for the CPU: exact at every
+// tiling tried, still exact with a halo one point short, wrong with one
+// two points short or with a margin of 5; at Li = 4 without the two extra
+// lanes it departed by 9.4e-14 and 2.9e-11 relative at Mj = 4 and 5
+// after 42 substeps.)
 //
 // Where intermediates live: in a scratch buffer in device memory that the
 // wrapper allocates, NPLANE window planes per block (the 16 carry fields

@@ -91,11 +91,13 @@ def chunk_schedule(nfast: int):
     return [2] * (nfast // 2) + [1] * (nfast % 2)
 
 
-def halo(ks: int):
+def halo(ks: int, Li: int):
     """(rows, lanes) per window edge that keep a tile exact over ks
     substeps (csrc/step2d_blocked.cu): 6 points a substep, one row more
-    for the wall copies, two lanes more for the periodic lanes."""
-    return 6 * ks + 1, 6 * ks + 2
+    for the wall copies, two lanes more for the periodic lanes, and two
+    more again on a 4-lane grid, where the periodic copies chain (as in
+    `half_step_halo`)."""
+    return 6 * ks + 1, 6 * ks + 2 + 2 * (Li == 4)
 
 
 def half_step_halo(Li: int):
@@ -224,7 +226,7 @@ def _launch_blocked(*args):
     nfast, ru0_prev, rv0_prev = args[2], args[13], args[14]
     Mj, Li = src.shape[1:]
     TJ, TI = tiling(Mj, Li)
-    hj, hi = halo(2)
+    hj, hi = halo(2, Li)
     blocks = -(-Mj // TJ) * -(-Li // TI)
     scratch = torch.empty(blocks * NPLANE * (TJ + 2 * hj) * (TI + 2 * hi),
                           dtype=src.dtype, device=src.device)
@@ -234,7 +236,7 @@ def _launch_blocked(*args):
                    [P, P, P, P, P, I, I, I, I, I, I, I, I, P, I, P])
     s0 = 0
     for ks in chunk_schedule(nfast):
-        hj, hi = halo(ks)
+        hj, hi = halo(ks, Li)
         rc = fn(statp, _lib.ptr(src), _lib.ptr(dst), _lib.ptr(scratch),
                 _lib.ptr(table), s0, ks, Mj, Li, TJ, TI, hj, hi, consts,
                 flags, P(stream))

@@ -6,6 +6,10 @@ reference: the kernel takes the i-1 and j-1 neighbours of the face
 averages with the same wrap as `st.im1`/`st.jm1` (jnp.roll), and on an
 EW-periodic grid uv_finish refreshes the Huon/Hvom lanes itself.
 `covers` is the class of `use_pallas_uv` (pallas_uv.py:255).
+
+uv_solve is one thread per column and component, streaming the column's
+levels once, its sweep state in shared memory sized by N
+(`solve_launch_shape`); uv_finish one thread per column.
 """
 
 from __future__ import annotations
@@ -14,6 +18,20 @@ import torch
 
 from . import _lib, stencil as st
 from .tridiag import spline_flux_solve
+
+
+# uv_solve's threads a block by element size: the sweep keeps 4 N - 2
+# values a thread in shared memory (csrc/uv.cu uv_solve_kernel); float32's
+# 96 is the fastest of the block sizes `chip_smoke.py --profile` times on
+# the H100 at BENCHMARK3's N = 30 (PERF.md)
+SOLVE_THREADS = {4: 96, 8: 64}
+
+
+def solve_launch_shape(N: int, Mj: int, Li: int, itemsize: int):
+    """uv_solve's (threads, blocks, dynamic shared memory bytes): two
+    blocks (u and v) per range of `threads` columns."""
+    B = SOLVE_THREADS[itemsize]
+    return B, 2 * -(-(Mj * Li) // B), itemsize * (4 * N - 2) * B
 
 
 def covers(cfg) -> bool:
@@ -88,22 +106,32 @@ def uv_solve(cfg, grid, u_part, v_part, ru, rv, Hz, Akv, cffab,
     if ru.device.type == "cpu":
         return uv_solve_plain(cfg, grid, u_part, v_part, ru, rv, Hz, Akv,
                               cffab, DU_avg1, DV_avg1)
+    return _launch_solve(cfg, grid, u_part, v_part, ru, rv, Hz, Akv, cffab,
+                         DU_avg1, DV_avg1)
+
+
+def _launch_solve(cfg, grid, u_part, v_part, ru, rv, Hz, Akv, cffab,
+                  DU_avg1, DV_avg1):
     _require(cfg, "uv_solve")
     tensors, sfx, stream = _lib.prepare(
         "uv_solve", [u_part, v_part, ru, rv, Hz, Akv, grid.pm, grid.pn,
                      grid.umask, grid.vmask, grid.on_u, grid.om_v, DU_avg1,
                      DV_avg1])
     N, Mj, Li = ru.shape
-    _lib.require_depth("uv_solve", N)
-    if Akv.shape != (N + 1, Mj, Li) or any(
+    if N < 2 or Akv.shape != (N + 1, Mj, Li) or any(
             x.shape != ru.shape for x in (u_part, v_part, rv, Hz)):
         raise ValueError("uv_solve: inconsistent shapes")
+    threads, _, smem = solve_launch_shape(N, Mj, Li, ru.element_size())
+    if smem > _lib.SMEM_PER_BLOCK:
+        raise ValueError(f"uv_solve: {N} levels need {smem} B of shared "
+                         "memory a block, more than the card's 227 KB")
     out_u = torch.empty_like(ru)
     out_v = torch.empty_like(rv)
     P, I, D = _lib.P, _lib.I, _lib.D
-    fn = _lib.func(f"roms_uv_solve_{sfx}", [P] * 16 + [I] * 3 + [D, D, P])
+    fn = _lib.func(f"roms_uv_solve_{sfx}",
+                   [P] * 16 + [I] * 3 + [D, D, I, P])
     rc = fn(*[_lib.ptr(x) for x in tensors + [out_u, out_v]],
-            N, Mj, Li, float(cfg.dt), float(cffab), P(stream))
+            N, Mj, Li, float(cfg.dt), float(cffab), threads, P(stream))
     _lib.launches["uv_solve"] += 1
     _lib.check(rc, "uv_solve")
     return out_u, out_v

@@ -20,7 +20,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
-from roms_tpu_torch.ops import _lib, hmix, step2d, tadv  # noqa: E402
+from roms_tpu_torch.ops import (  # noqa: E402
+    _lib, hmix, rhs3d, step2d, tadv, uv)
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
@@ -211,3 +212,80 @@ def test_rot_div_geo_raises_when_its_tile_exceeds_shared_memory():
     assert hmix.launch_shape(40, *t.shape[2:], 8)[3] > _lib.SMEM_PER_BLOCK
     with pytest.raises(RuntimeError, match="rot_div_geo"):
         hmix.rot_div_geo(cfg, grid, qs, d2s, Hz, z_r)
+
+
+@pytest.mark.parametrize("Mj", [4, 5])
+def test_fast_loop_blocked_on_a_4_lane_channel(Mj):
+    """Kernel 12 on a 4-lane channel (Li = 4), where the periodic copies
+    chain and its halo takes two lanes more: float64, 42 substeps, within
+    the fast loops' bound of its plain loop, from the first substep and a
+    later one."""
+    _need_card()
+    env = cs.setup(torch, 2, Mj - 2, 4, "float64", app="upwelling")
+    for iic in (0, 5):
+        args, _ = cs.entry_inputs(torch, "fast_loop_blocked", *env, iic)
+        assert args[2] == 42
+        rel, _ = cs.compare(torch, "fast_loop_blocked", args, "float64")
+        assert rel <= cs.TOL_F64["fast_loop_blocked"], (Mj, iic, rel)
+
+
+def _closed(cfg):
+    from roms_tpu_torch.config import LBC, BoundaryConfig
+    return cfg.replace(bc=BoundaryConfig.uniform(LBC()))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("closed", [False, True])
+@pytest.mark.parametrize("app,shape", cs.REDESIGN_SHAPES)
+def test_rhs3d_at_ragged_and_minimal_shapes(app, shape, closed, dtype):
+    """Kernel 3 (column marching over shared-memory tiles) against its
+    plain version with the app's lanes (EW-periodic on the channels) and
+    with closed walls, on ragged grids and at the wrapper's minimal depth
+    N = 3."""
+    _need_card()
+    env = cs.setup(torch, *shape, dtype, app=app)
+    args, _ = cs.entry_inputs(torch, "rhs3d_momentum", *env, 5)
+    if closed:
+        args = (_closed(args[0]),) + args[1:]
+    before = _lib.launches["rhs3d_momentum"]
+    rel, _ = cs.compare(torch, "rhs3d_momentum", args, dtype)
+    assert rel <= cs.TOL[dtype], (app, shape, closed, dtype, rel)
+    assert _lib.launches["rhs3d_momentum"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("closed", [False, True])
+@pytest.mark.parametrize("app,shape", cs.REDESIGN_SHAPES)
+def test_uv_solve_at_ragged_and_minimal_shapes(app, shape, closed, dtype):
+    """Kernel 4's uv_solve (a column sweep with its state in shared
+    memory) against its plain version at N = 3 and 4 and ragged grids,
+    closed and EW-periodic, from iic 0, 1 and 5 (the AB3 seeds)."""
+    _need_card()
+    env = cs.setup(torch, *shape, dtype, app=app)
+    for iic in (0, 1, 5):
+        args, _ = cs.entry_inputs(torch, "uv_solve", *env, iic)
+        if closed:
+            args = (_closed(args[0]),) + args[1:]
+        before = _lib.launches["uv_solve"]
+        rel, _ = cs.compare(torch, "uv_solve", args, dtype)
+        assert rel <= cs.TOL[dtype], (app, shape, closed, dtype, iic, rel)
+        assert _lib.launches["uv_solve"] == before + 1
+
+
+def test_redesigned_kernels_raise_over_shared_memory(monkeypatch):
+    """float64 launches whose shared memory would exceed a block's 227 KB
+    raise before launching: uv_solve's sweep at 120 levels, and rhs3d
+    with a (64, 128) tile."""
+    _need_card()
+    env = cs.setup(torch, 10, 8, 120, "float64", app="upwelling")
+    args, _ = cs.entry_inputs(torch, "uv_solve", *env, 5)
+    before = dict(_lib.launches)
+    with pytest.raises(ValueError, match="uv_solve"):
+        uv.uv_solve(*args)
+    env = cs.setup(torch, 126, 62, 3, "float64", app="upwelling")
+    args, _ = cs.entry_inputs(torch, "rhs3d_momentum", *env, 5)
+    monkeypatch.setattr(rhs3d, "TILE", (64, 128))
+    assert rhs3d.launch_shape(64, 128, 8)[4] > _lib.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="rhs3d_momentum"):
+        rhs3d.rhs3d_momentum(*args)
+    assert _lib.launches == before

@@ -130,16 +130,19 @@ def test_chunk_schedule():
 
 
 @pytest.mark.parametrize("shape", [(23, 14), (258, 2050), (1026, 514),
-                                   (34, 66), (102, 205)])
+                                   (34, 66), (102, 205), (4, 4), (5, 4)])
 def test_tiling_covers_the_grid(shape):
     """The tiles cover the grid with as few tiles of at most 24 x 96 as
     will do, and the halo keeps 6 points a substep plus the BC copies'
-    reach."""
+    reach, two lanes more on a 4-lane grid, where the periodic copies
+    chain."""
     Mj, Li = shape
     TJ, TI = tstep2d.tiling(Mj, Li)
     assert TJ <= 24 and TI <= 96
     assert -(-Mj // TJ) == -(-Mj // 24) and -(-Li // TI) == -(-Li // 96)
-    assert tstep2d.halo(2) == (13, 14) and tstep2d.halo(1) == (7, 8)
+    extra = 2 if Li == 4 else 0
+    assert tstep2d.halo(2, Li) == (13, 14 + extra)
+    assert tstep2d.halo(1, Li) == (7, 8 + extra)
 
 
 @pytest.fixture(scope="module")

@@ -1,15 +1,16 @@
-"""Launch shapes of kernels 11 (the resident fast loop) and 16
-(rot_div_geo) on the CPU: the tiles cover the grid, kernel 11's halo, and
-the dynamic shared memory each element size asks for against the H100's
-227 KB a block and 228 KB an SM.  The kernels themselves need the card:
-tests/test_torch_cuda.py."""
+"""Launch shapes of kernels 3 (rhs3d), 4 (uv_solve), 11 (the resident
+fast loop) and 16 (rot_div_geo) on the CPU: the tiles cover the grid,
+kernel 11's halo, and the dynamic shared memory each element size asks
+for against the H100's 227 KB a block and 228 KB an SM.  The kernels
+themselves need the card: tests/test_torch_cuda.py."""
 
 import pytest
 
-from roms_tpu_torch.ops import _lib, hmix, step2d
+from roms_tpu_torch.ops import _lib, hmix, rhs3d, step2d, uv
 
 # shared memory of one SM of the H100, 1 KB of it reserved per block
 SMEM_PER_SM = 233472
+SMS = 132          # the H100's streaming multiprocessors
 FULL = [(258, 2050), (1026, 514)]    # BENCHMARK3, UPWELLING (Mj, Li)
 SHAPES = FULL + [(4, 4), (5, 4), (35, 75), (23, 14), (3, 3)]
 
@@ -60,3 +61,72 @@ def test_rot_div_geo_launch_shape(NT, itemsize):
     if NT == 2 and itemsize == 4:
         smem = hmix.launch_shape(NT, *FULL[0], itemsize)[3]
         assert 4 * (smem + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rhs3d_launch_shape(shape, itemsize):
+    """Kernel 3's tiles cover the grid with as few tiles of TILE as will
+    do (at least five lanes, so that the shifted lane tiling keeps the
+    periodic seam's ring positions in one tile), one point a thread; its
+    window has a two-point halo and fits a block."""
+    Mj, Li = shape
+    TJ, TI, halo, blocks, smem = rhs3d.launch_shape(Mj, Li, itemsize)
+    tile = rhs3d.TILE
+    assert blocks == -(-Mj // TJ) * -(-Li // TI)
+    assert TJ <= tile[0] and min(Li, 5) <= TI <= max(tile[1], 5)
+    if TI >= 5:
+        assert -(-Mj // TJ) == -(-Mj // tile[0])
+        assert -(-Li // TI) == -(-Li // tile[1])
+    assert TJ * TI <= rhs3d.THREADS and halo == 2
+    WJ, WI = TJ + 2 * halo, TI + 2 * halo
+    assert smem == itemsize * rhs3d.WINDOW_PLANES * WJ * WI \
+        + 4 * (3 * WJ + 4 * WI)
+    assert smem <= _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", FULL)
+def test_rhs3d_fills_the_card(shape, itemsize):
+    """At both full-width shapes kernel 3 launches more than one full wave
+    of two blocks an SM, and two windows fit an SM's shared memory, in
+    float32 and float64."""
+    *_, blocks, smem = rhs3d.launch_shape(*shape, itemsize)
+    assert blocks >= 2 * SMS
+    assert 2 * (smem + 1024) <= SMEM_PER_SM
+
+
+def test_rhs3d_tile_over_shared_memory_is_counted(monkeypatch):
+    """A float64 tile whose window exceeds a block's 227 KB shows in the
+    launch shape (the wrapper raises on it before launching)."""
+    monkeypatch.setattr(rhs3d, "TILE", (64, 128))
+    assert rhs3d.launch_shape(258, 2050, 8)[4] > _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("N", [3, 4, 16, 30, 64])
+def test_uv_solve_launch_shape(N, itemsize):
+    """Kernel 4's uv_solve: two blocks (u and v) per range of columns,
+    4 N - 2 values a thread in shared memory, within a block's 227 KB up
+    to 64 levels in either type."""
+    for Mj, Li in SHAPES:
+        B, blocks, smem = uv.solve_launch_shape(N, Mj, Li, itemsize)
+        assert B == uv.SOLVE_THREADS[itemsize] and B % 32 == 0
+        assert blocks == 2 * -(-(Mj * Li) // B)
+        assert smem == itemsize * (4 * N - 2) * B
+        assert smem <= _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape,N", [(FULL[0], 30), (FULL[1], 16)])
+def test_uv_solve_fills_the_card_in_float32(shape, N):
+    """At both full-width shapes and depths the float32 sweep launches
+    many waves, and at least two blocks fit an SM's shared memory."""
+    B, blocks, smem = uv.solve_launch_shape(N, *shape, 4)
+    assert blocks >= 10 * SMS
+    assert 2 * (smem + 1024) <= SMEM_PER_SM
+
+
+def test_uv_solve_deep_float64_column_exceeds_shared_memory():
+    """120 float64 levels need more than a block's 227 KB (the wrapper
+    raises on it before launching)."""
+    assert uv.solve_launch_shape(120, 23, 14, 8)[2] > _lib.SMEM_PER_BLOCK
