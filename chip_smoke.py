@@ -5,8 +5,8 @@
     python3 chip_smoke.py --profile  # only: where the full-width steps'
                                      # time goes (CUDA events, profiler),
                                      # the fast loop's by 2D term and
-                                     # rhs3d's and uv_solve's time by
-                                     # launch shape
+                                     # rhs3d's, uv_solve's, tadv's and
+                                     # prsgrd's time by launch shape
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
@@ -28,10 +28,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the UPWELLING and BENCHMARK3 states (the latter's nfast = 29 odd),
      float64 rel <= 1e-11, with its difference from the resident fast
      loop (kernel 11) on the same inputs, and on 4-lane channels (Li = 4,
-     Mj = 4 and 5, 42 substeps); the redesigned rhs3d (kernel 3) and
-     uv_solve (kernel 4) on ragged grids and at minimal depths (N = 3 and
-     4), closed and EW-periodic, uv_solve from iic 0, 1 and 5, and their
-     float64 launches over a block's shared memory refused;
+     Mj = 4 and 5, 42 substeps); the redesigned tadv (kernel 2, both
+     modes, 1, 2 and 5 tracers), rhs3d (kernel 3) and uv_solve (kernel
+     4) on ragged grids and at minimal depths (N = 3 and 4), closed and
+     EW-periodic, tadv's predictor and uv_solve from iic 0, 1 and 5, the
+     redesigned prsgrd (kernel 9) on ragged and 4-lane channels down to
+     N = 2, and the float64 launches of all five over a block's shared
+     memory refused;
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
@@ -330,7 +333,6 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
     if cfg.bc.ew_periodic:
         Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
     W = omega(cfg, grid, Huon, Hvom, z_w)
-    pmn = grid.pm * grid.pn
     if name == "tridiag":
         # diagonally dominant systems on the N-1 interior interfaces,
         # the shape of the GLS/MY2.5 solves
@@ -346,13 +348,13 @@ def entry_inputs(torch, name, cfg, grid, s, rnd, z_r, z_w, Hz, iic):
         t_prev = t + 0.01 * rnd(*t.shape)
         args = (cfg, grid, t, t_prev, Huon, Hvom, W, Hz,
                 *tracer_predictor_coefs(cfg, iic))
-        return args, [t, t_prev, Huon, Hvom, W, Hz, pmn, grid.umask,
-                      grid.vmask]
+        return args, [t, t_prev, Huon, Hvom, W, Hz, grid.pm, grid.pn,
+                      grid.umask, grid.vmask]
     if name == "tadv_corrector":
         t_part = Hz * t
         args = (cfg, grid, t, t_part, Huon, Hvom, W, Hz)
-        return args, [t, t_part, Huon, Hvom, W, pmn, grid.umask,
-                      grid.vmask]
+        return args, [t, t_part, Huon, Hvom, W, grid.pm, grid.pn,
+                      grid.umask, grid.vmask]
     if name == "rhs3d_momentum":
         ru, rv = rnd(*shp3), rnd(*shp3)
         args = (cfg, grid, u, v, Hz, Huon, Hvom, W, ru, rv)
@@ -604,34 +606,72 @@ def kernel_phase_checks(torch):
     _lib.reset_launches()
 
 
-# (app, (Lm, Mm, N)) of the redesigned kernels 3 and 4: grids that no
+# (app, (Lm, Mm, N)) of the redesigned kernels 2, 3 and 4: grids that no
 # tile divides (Mj = 21, Li = 39 and 47; DOUBLE_GYRE's Mj = 63), the
 # smallest channel (Mj = Li = 4) and the minimal depths
 REDESIGN_SHAPES = [("upwelling", (37, 19, 3)), ("benchmark", (45, 19, 4)),
                    ("upwelling", (2, 2, 3)), ("double_gyre", (30, 61, 4))]
+# kernel 9's shapes: the channels of REDESIGN_SHAPES (its class is
+# EW-periodic) and its minimal depth N = 2 on a 4-lane and a ragged grid
+PRSGRD_SHAPES = [s for s in REDESIGN_SHAPES if s[0] != "double_gyre"] + [
+    ("upwelling", (2, 3, 2)), ("benchmark", (45, 19, 2))]
+# kernel 2's tracer counts: one, the apps' two, and five (three groups of
+# csrc/tadv.cu's two tracers a block, the last with one)
+TADV_NT = (1, 2, 5)
+
+
+def with_tracers(torch, args, NT):
+    """A tadv entry point's args with NT tracers made from the app's two."""
+    cfg, grid, q, aux = args[:4]
+    qs = torch.stack([q[n % 2] * (1.0 + 0.1 * n) for n in range(NT)])
+    auxs = torch.stack([aux[n % 2] for n in range(NT)])
+    return (cfg.replace(NT=NT), grid, qs, auxs) + args[4:]
+
+
+def redesign_cases(torch, env):
+    """(name, sides, iic, NT, args) of the redesigned kernels 2, 3 and 4
+    on one app's seeded state: the app's lanes and closed walls, tadv's
+    predictor and uv_solve from iic 0, 1 and 5, tadv at TADV_NT."""
+    from roms_tpu_torch.config import LBC, BoundaryConfig
+    for name in ("tadv_predictor", "tadv_corrector", "rhs3d_momentum",
+                 "uv_solve"):
+        for iic in (0, 1, 5) if name in ("tadv_predictor", "uv_solve") \
+                else (5,):
+            args, _ = entry_inputs(torch, name, *env, iic)
+            for sides in ("app", "closed"):
+                if sides == "closed":
+                    args = (args[0].replace(
+                        bc=BoundaryConfig.uniform(LBC())),) + args[1:]
+                for NT in TADV_NT if name.startswith("tadv") else (2,):
+                    yield name, sides, iic, NT, (
+                        with_tracers(torch, args, NT)
+                        if name.startswith("tadv") else args)
 
 
 def redesign_checks(torch):
-    """Kernels 3 and 4 at REDESIGN_SHAPES with the app's lanes and with
-    closed walls, uv_solve from iic 0, 1 and 5; kernel 12 on 4-lane
-    channels; the float64 launches over shared memory refused."""
-    from roms_tpu_torch.config import LBC, BoundaryConfig
-    from roms_tpu_torch.ops import rhs3d, uv
+    """Kernels 2, 3 and 4 at REDESIGN_SHAPES with the app's lanes and with
+    closed walls, tadv's predictor and uv_solve from iic 0, 1 and 5, tadv
+    at one, two and five tracers; kernel 9 at PRSGRD_SHAPES; kernel 12 on
+    4-lane channels; the float64 launches over shared memory refused."""
+    from roms_tpu_torch.ops import prsgrd, rhs3d, tadv, uv
     for app, (Lm, Mm, N) in REDESIGN_SHAPES:
         for dtype in ("float64", "float32"):
             env = setup(torch, Lm, Mm, N, dtype, app=app)
-            for name in ("rhs3d_momentum", "uv_solve"):
-                for iic in (0, 1, 5) if name == "uv_solve" else (5,):
-                    args, _ = entry_inputs(torch, name, *env, iic)
-                    for sides in ("app", "closed"):
-                        if sides == "closed":
-                            args = (args[0].replace(
-                                bc=BoundaryConfig.uniform(LBC())),) + args[1:]
-                        rel, abs_err = compare(torch, name, args, dtype)
-                        print(f"kernel redesign {app:11s} {name:15s} {dtype} "
-                              f"{sides:6s} N={N} Mj={Mm + 2} Li={Lm + 2} "
-                              f"iic={iic}: max rel {rel:.3e} max abs "
-                              f"{abs_err:.3e}", flush=True)
+            for name, sides, iic, NT, args in redesign_cases(torch, env):
+                rel, abs_err = compare(torch, name, args, dtype)
+                print(f"kernel redesign {app:11s} {name:15s} {dtype} "
+                      f"{sides:6s} N={N} Mj={Mm + 2} Li={Lm + 2} NT={NT} "
+                      f"iic={iic}: max rel {rel:.3e} max abs {abs_err:.3e}",
+                      flush=True)
+            del env
+    for app, (Lm, Mm, N) in PRSGRD_SHAPES:
+        for dtype in ("float64", "float32"):
+            env = setup(torch, Lm, Mm, N, dtype, app=app)
+            args, _ = entry_inputs(torch, "prsgrd32", *env, 5)
+            rel, abs_err = compare(torch, "prsgrd32", args, dtype)
+            print(f"kernel redesign {app:11s} prsgrd32        {dtype} app    "
+                  f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
+                  f"abs {abs_err:.3e}", flush=True)
             del env
     for Mm in (2, 3):
         env = setup(torch, 2, Mm, 4, "float64", app="upwelling")
@@ -648,14 +688,24 @@ def redesign_checks(torch):
     env = setup(torch, 126, 62, 3, "float64", app="upwelling")
     args3, _ = entry_inputs(torch, "rhs3d_momentum", *env, 5)
 
-    def rhs3d_big_tile():
-        tile = rhs3d.TILE
-        rhs3d.TILE = (64, 128)
-        try:
-            return rhs3d.rhs3d_momentum(*args3)
-        finally:
-            rhs3d.TILE = tile
-    refusals.append(("rhs3d_momentum tile (64, 128)", rhs3d_big_tile))
+    argsp, _ = entry_inputs(torch, "prsgrd32", *env, 5)
+    argst, _ = entry_inputs(torch, "tadv_corrector", *env, 5)
+
+    def big_tile(mod, call, args):
+        def run():
+            tile = mod.TILE
+            mod.TILE = (64, 128)
+            try:
+                return call(*args)
+            finally:
+                mod.TILE = tile
+        return run
+    refusals += [
+        ("rhs3d_momentum tile (64, 128)",
+         big_tile(rhs3d, rhs3d.rhs3d_momentum, args3)),
+        ("tadv_corrector tile (64, 128)",
+         big_tile(tadv, tadv.corrector, argst)),
+        ("prsgrd32 tile (64, 128)", big_tile(prsgrd, prsgrd.prsgrd32, argsp))]
     for what, call in refusals:
         try:
             call()
@@ -1082,6 +1132,18 @@ def kernel_table(torch, app, counts):
                   f"{blocks} blocks, {smem} B dynamic shared memory a "
                   f"block; window {win:.3f}x the tile (halo from L2)",
                   flush=True)
+        if name in ("tadv_predictor", "prsgrd32"):
+            from roms_tpu_torch.ops import prsgrd, tadv
+            shp = outs[0].shape
+            TJ, TI, halo, blocks, smem = tadv.launch_shape(
+                shp[0], *shp[2:], outs[0].element_size()) \
+                if name == "tadv_predictor" else prsgrd.launch_shape(
+                    *shp[1:], outs[0].element_size())
+            hj = (halo, halo) if name == "tadv_predictor" else halo
+            win = (TJ + sum(hj)) * (TI + sum(hj)) / (TJ * TI)
+            print(f"{app} {name} tile {TJ}x{TI}, halo {halo}, {blocks} "
+                  f"blocks, {smem} B dynamic shared memory a block; window "
+                  f"{win:.3f}x the tile (halo from L2)", flush=True)
         if name == "uv_solve":
             from roms_tpu_torch.ops.uv import solve_launch_shape
             N, Mj, Li = outs[0].shape
@@ -1129,23 +1191,31 @@ def fast_loop_terms(torch, app):
 
 
 # the launch shapes timed against the chosen ones (ops/rhs3d.py TILE,
-# ops/uv.py SOLVE_THREADS)
+# ops/uv.py SOLVE_THREADS, ops/tadv.py TILE, ops/prsgrd.py TILE)
 RHS3D_TILES = ((8, 32), (16, 16), (4, 64), (8, 16))
 UV_SOLVE_THREADS = (64, 96, 128, 192)
+TADV_TILES = ((7, 31), (8, 32), (15, 15), (16, 16), (4, 64))
+PRSGRD_TILES = ((7, 31), (15, 15), (3, 63), (7, 15), (3, 31))
 
 
 def launch_shapes(torch, app):
     """rhs3d's time with each tile of RHS3D_TILES (and with its advection
-    or Coriolis term off) and uv_solve's with each block size of
-    UV_SOLVE_THREADS at the app's full width, float32, each output bitwise
-    against the chosen shape's."""
-    from roms_tpu_torch.ops import rhs3d, uv
+    or Coriolis term off), uv_solve's with each block size of
+    UV_SOLVE_THREADS, tadv's (both modes) with each of TADV_TILES and
+    prsgrd's with each of PRSGRD_TILES at the app's full width, float32,
+    each output bitwise against the chosen shape's."""
+    from roms_tpu_torch.ops import prsgrd, rhs3d, tadv, uv
+
+    def tile_of(mod):
+        return lambda: mod.TILE, lambda x: setattr(mod, "TILE", x)
     env = setup(torch, *APPS[app]["full"], "float32", app=app)
     for name, shapes, get, put in (
-            ("rhs3d_momentum", RHS3D_TILES, lambda: rhs3d.TILE,
-             lambda x: setattr(rhs3d, "TILE", x)),
+            ("rhs3d_momentum", RHS3D_TILES, *tile_of(rhs3d)),
             ("uv_solve", UV_SOLVE_THREADS, lambda: uv.SOLVE_THREADS[4],
-             lambda x: uv.SOLVE_THREADS.__setitem__(4, x))):
+             lambda x: uv.SOLVE_THREADS.__setitem__(4, x)),
+            ("tadv_predictor", TADV_TILES, *tile_of(tadv)),
+            ("tadv_corrector", TADV_TILES, *tile_of(tadv)),
+            ("prsgrd32", PRSGRD_TILES, *tile_of(prsgrd))):
         args, _ = entry_inputs(torch, name, *env, 5)
         kern = entry_fns(name)[0]
         chosen = get()

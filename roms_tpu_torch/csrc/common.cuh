@@ -52,4 +52,40 @@ __device__ __forceinline__ int ring_x(int i, int Li, bool ewp) {
   return i == 0 ? Li - 2 : (i == Li - 1 ? 1 : i);
 }
 
+// One element from device to shared memory without passing through
+// registers (cp.async); copy_commit() closes this thread's copies issued
+// since the last commit into a group, copy_wait<n>() waits until at most n
+// of its groups are in flight.  Elsewhere than on the card, a plain copy.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void copy_async(double* dst, const double* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int n>
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+#endif
+}
+
 }  // namespace roms

@@ -59,6 +59,9 @@
 
 namespace {
 
+using roms::copy_async;
+using roms::copy_commit;
+using roms::copy_wait;
 using roms::mul_rn;
 
 constexpr double GADV = -0.25;
@@ -66,34 +69,6 @@ constexpr int kThreadsRhs = 256;
 constexpr int kHalo = 2;   // window rows and lanes beyond the tile, each side
 // a level's staged planes: u, v, Huon, Hvom, Hz and W (interface k+1)
 constexpr int kRaw = 6;
-
-// one element from device to shared memory without passing through
-// registers (cp.async); copy_wait() waits for this thread's copies
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void copy_async(double* dst, const double* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void copy_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
 
 template <typename T>
 struct Params {
@@ -275,7 +250,8 @@ rhs3d_kernel(const __grid_constant__ Params<T> p) {
     }
   };
   stage(0, 0);
-  copy_wait();
+  copy_commit();
+  copy_wait<0>();
 
   // the level loop, with the tables (MAP) or without
   auto march = [&](auto map) {
@@ -427,7 +403,8 @@ rhs3d_kernel(const __grid_constant__ Params<T> p) {
       vb = vc;
       vc = vd;
       vd = vn;
-      copy_wait();
+      copy_commit();
+      copy_wait<0>();
     }
   };
   if (mapped)

@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
 from roms_tpu_torch.ops import (  # noqa: E402
-    _lib, hmix, rhs3d, step2d, tadv, uv)
+    _lib, hmix, prsgrd, rhs3d, step2d, tadv, uv)
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
@@ -272,10 +272,71 @@ def test_uv_solve_at_ragged_and_minimal_shapes(app, shape, closed, dtype):
         assert _lib.launches["uv_solve"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("closed", [False, True])
+@pytest.mark.parametrize("app,shape", cs.REDESIGN_SHAPES)
+def test_tadv_at_ragged_and_minimal_shapes(app, shape, closed, dtype):
+    """Kernel 2 (column marching over shared-memory tiles, a block a tile
+    and group of two tracers) against its plain versions, both modes, at
+    one, two and five tracers, N = 3 and 4 and ragged grids, closed and
+    EW-periodic, the predictor from iic 0, 1 and 5; one launch a call."""
+    _need_card()
+    env = cs.setup(torch, *shape, dtype, app=app)
+    for name in ("tadv_predictor", "tadv_corrector"):
+        for iic in (0, 1, 5) if name == "tadv_predictor" else (5,):
+            args, _ = cs.entry_inputs(torch, name, *env, iic)
+            if closed:
+                args = (_closed(args[0]),) + args[1:]
+            for NT in cs.TADV_NT:
+                before = _lib.launches[name]
+                rel, _ = cs.compare(torch, name,
+                                    cs.with_tracers(torch, args, NT), dtype)
+                assert rel <= cs.TOL[dtype], (name, shape, closed, iic, NT,
+                                              rel)
+                assert _lib.launches[name] == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("app,shape", cs.PRSGRD_SHAPES)
+def test_prsgrd_at_ragged_and_minimal_shapes(app, shape, dtype):
+    """Kernel 9 (each column's pressure once a level, each limited
+    difference once, in shared memory) against its plain version on
+    EW-periodic channels: ragged grids, Li = 4 and N = 2."""
+    _need_card()
+    env = cs.setup(torch, *shape, dtype, app=app)
+    args, _ = cs.entry_inputs(torch, "prsgrd32", *env, 5)
+    before = _lib.launches["prsgrd32"]
+    rel, _ = cs.compare(torch, "prsgrd32", args, dtype)
+    assert rel <= cs.TOL[dtype], (app, shape, dtype, rel)
+    assert _lib.launches["prsgrd32"] == before + 1
+
+
+def test_tadv_wrapper_launches_its_kernel_alone():
+    """The tadv wrapper runs no PyTorch operation on the card: a call is
+    one device kernel, tadv_kernel (pm*pn is formed in the kernel)."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    env = cs.setup(torch, 37, 19, 4, "float32", app="upwelling")
+    for name in ("tadv_predictor", "tadv_corrector"):
+        args, _ = cs.entry_inputs(torch, name, *env, 5)
+        kern = cs.entry_fns(name)[0]
+        kern(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern(*args)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and e.count]
+        assert len(rows) == 1 and "tadv_kernel<" in rows[0].key, [
+            e.key for e in rows]
+        assert rows[0].count == 1
+
+
 def test_redesigned_kernels_raise_over_shared_memory(monkeypatch):
     """float64 launches whose shared memory would exceed a block's 227 KB
-    raise before launching: uv_solve's sweep at 120 levels, and rhs3d
-    with a (64, 128) tile."""
+    raise before launching: uv_solve's sweep at 120 levels, and rhs3d,
+    tadv and prsgrd with a (64, 128) tile."""
     _need_card()
     env = cs.setup(torch, 10, 8, 120, "float64", app="upwelling")
     args, _ = cs.entry_inputs(torch, "uv_solve", *env, 5)
@@ -288,4 +349,12 @@ def test_redesigned_kernels_raise_over_shared_memory(monkeypatch):
     assert rhs3d.launch_shape(64, 128, 8)[4] > _lib.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="rhs3d_momentum"):
         rhs3d.rhs3d_momentum(*args)
+    for mod, name, call, shape in (
+            (tadv, "tadv_corrector", tadv.corrector, (2, 64, 128, 8)),
+            (prsgrd, "prsgrd32", prsgrd.prsgrd32, (64, 128, 8))):
+        args, _ = cs.entry_inputs(torch, name, *env, 5)
+        monkeypatch.setattr(mod, "TILE", (64, 128))
+        assert mod.launch_shape(*shape)[4] > _lib.SMEM_PER_BLOCK
+        with pytest.raises(ValueError, match=name):
+            call(*args)
     assert _lib.launches == before

@@ -1,12 +1,13 @@
-"""Launch shapes of kernels 3 (rhs3d), 4 (uv_solve), 11 (the resident
-fast loop) and 16 (rot_div_geo) on the CPU: the tiles cover the grid,
-kernel 11's halo, and the dynamic shared memory each element size asks
-for against the H100's 227 KB a block and 228 KB an SM.  The kernels
-themselves need the card: tests/test_torch_cuda.py."""
+"""Launch shapes of kernels 2 (tadv), 3 (rhs3d), 4 (uv_solve), 9
+(prsgrd32), 11 (the resident fast loop) and 16 (rot_div_geo) on the
+CPU: the tiles cover the grid, kernel 11's halo, and the dynamic shared
+memory each element size asks for against the H100's 227 KB a block and
+228 KB an SM.  The kernels themselves need the card:
+tests/test_torch_cuda.py."""
 
 import pytest
 
-from roms_tpu_torch.ops import _lib, hmix, rhs3d, step2d, uv
+from roms_tpu_torch.ops import _lib, hmix, prsgrd, rhs3d, step2d, tadv, uv
 
 # shared memory of one SM of the H100, 1 KB of it reserved per block
 SMEM_PER_SM = 233472
@@ -130,3 +131,83 @@ def test_uv_solve_deep_float64_column_exceeds_shared_memory():
     """120 float64 levels need more than a block's 227 KB (the wrapper
     raises on it before launching)."""
     assert uv.solve_launch_shape(120, 23, 14, 8)[2] > _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("NT", [1, 2, 5])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tadv_launch_shape(shape, NT, itemsize):
+    """Kernel 2's tiles cover the grid with as few tiles of TILE as will
+    do (at least five lanes, for the shifted lane tiling's seam), one
+    point a thread, one block a tile and group of up to GROUP tracers;
+    its window has a two-point halo and fits a block at one, two and five
+    tracers in either type."""
+    Mj, Li = shape
+    TJ, TI, halo, blocks, smem = tadv.launch_shape(NT, Mj, Li, itemsize)
+    tile = tadv.TILE
+    assert blocks == -(-Mj // TJ) * -(-Li // TI) * -(-NT // tadv.GROUP)
+    assert TJ <= tile[0] and min(Li, 5) <= TI <= max(tile[1], 5)
+    if TI >= 5:
+        assert -(-Mj // TJ) == -(-Mj // tile[0])
+        assert -(-Li // TI) == -(-Li // tile[1])
+    assert TJ * TI <= tadv.THREADS and halo == 2
+    G = min(NT, tadv.GROUP)
+    WJ, WI = TJ + 2 * halo, TI + 2 * halo
+    S = tadv.STAGES
+    assert smem == itemsize * ((S * (G + 2) + 2 + 2 * G) * WJ * WI
+                               + S * (G + 2) * tadv.THREADS) \
+        + 4 * (WJ + 2 * WI + WJ * WI + (TJ + 1) * (TI + 1))
+    assert smem <= _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape", FULL)
+def test_tadv_fills_the_card_in_float32(shape):
+    """At both full-width shapes and the apps' two tracers kernel 2
+    launches more than one full wave of the four blocks an SM its
+    registers allow, four windows fit an SM's shared memory, and each
+    face of a tile and its rim has a thread of its own."""
+    TJ, TI, _, blocks, smem = tadv.launch_shape(2, *shape, 4)
+    assert blocks >= 4 * SMS
+    assert 4 * (smem + 1024) <= SMEM_PER_SM
+    assert (TJ + 1) * (TI + 1) <= tadv.THREADS
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[1] >= 4])
+def test_prsgrd_launch_shape(shape, itemsize):
+    """Kernel 9's tiles cover the grid with as few tiles of TILE as will
+    do (at least five lanes); the tile grown by its west lane and south
+    row has a thread a column; its window reaches two rows and lanes
+    south/west and one north/east and fits a block."""
+    Mj, Li = shape
+    TJ, TI, halo, blocks, smem = prsgrd.launch_shape(Mj, Li, itemsize)
+    tile = prsgrd.TILE
+    assert blocks == -(-Mj // TJ) * -(-Li // TI)
+    assert TJ <= tile[0] and min(Li, 5) <= TI <= max(tile[1], 5)
+    if TI >= 5:
+        assert -(-Mj // TJ) == -(-Mj // tile[0])
+        assert -(-Li // TI) == -(-Li // tile[1])
+    assert (TJ + 1) * (TI + 1) <= prsgrd.THREADS and halo == (2, 1)
+    WJ, WI = TJ + 3, TI + 3
+    assert smem == itemsize * prsgrd.WINDOW_PLANES * WJ * WI \
+        + 4 * (WJ + 3 * WI + WJ * WI)
+    assert smem <= _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape", FULL)
+def test_prsgrd_fills_the_card_in_float32(shape):
+    """At both full-width shapes kernel 9 launches more than one full
+    wave of four blocks an SM (its registers' limit in float32), and four
+    windows fit an SM's shared memory."""
+    *_, blocks, smem = prsgrd.launch_shape(*shape, 4)
+    assert blocks >= 4 * SMS
+    assert 4 * (smem + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("mod", [tadv, prsgrd])
+def test_tadv_prsgrd_tile_over_shared_memory_is_counted(mod, monkeypatch):
+    """A float64 tile whose window exceeds a block's 227 KB shows in the
+    launch shape (the wrappers raise on it before launching)."""
+    monkeypatch.setattr(mod, "TILE", (64, 128))
+    shape = mod.launch_shape(*((2,) if mod is tadv else ()), 258, 2050, 8)
+    assert shape[4] > _lib.SMEM_PER_BLOCK
