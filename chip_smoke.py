@@ -5,12 +5,15 @@
     python3 chip_smoke.py --profile  # only: where the full-width steps'
                                      # time goes (CUDA events, profiler),
                                      # the fast loop's by 2D term and
-                                     # rhs3d's, uv_solve's, tadv's and
-                                     # prsgrd's time by launch shape
+                                     # rhs3d's, uv_solve's, tadv's,
+                                     # prsgrd's, prep's and spline_vdiff's
+                                     # time by launch shape
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
-     roms_tpu_torch/csrc (one nvcc per source, all started together);
+     roms_tpu_torch/csrc (one nvcc per source, all started together),
+     the registers and stack frame of the column sweeps (kernels 6, 14
+     and 15);
   2. kernel phase: each kernel entry point against its plain PyTorch
      version on the card, same inputs, float64 (rel <= 1e-12; the fast
      loop, 2 x 42 substeps, 1e-11) and float32 (rel <= 1e-5), on seeded
@@ -33,8 +36,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      4) on ragged grids and at minimal depths (N = 3 and 4), closed and
      EW-periodic, tadv's predictor and uv_solve from iic 0, 1 and 5, the
      redesigned prsgrd (kernel 9) on ragged and 4-lane channels down to
-     N = 2, and the float64 launches of all five over a block's shared
-     memory refused;
+     N = 2, the column sweeps of prep, KPP alone and spline_vdiff
+     (kernels 15, 14 and 6) on the same grids and at N = 2 on a 4-lane
+     channel, KPP's boundary layer column by column with a statically
+     unstable column every other one, spline_vdiff at one, two and five
+     tracers with one or two Akt profiles and bitwise, and the float64
+     launches of all eight over a block's shared memory refused;
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
@@ -120,6 +127,7 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_lib.build_seconds:.1f} s)", flush=True)
     print(_lib.ptxas_report(), flush=True)
+    ptxas_summary(("kpp_kernel", "vdiff_kernel"))
     _lib.lib()
 
     full = [app for app in APPS if APPS[app]["full"]]
@@ -151,6 +159,28 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def ptxas_summary(kernels):
+    """One line per compiled kernel whose name starts with one of
+    `kernels`: its registers and stack frame from `ptxas -v`."""
+    import re
+    from roms_tpu_torch.ops import _lib
+    name, seen = None, {}
+    for line in _lib.ptxas_report().splitlines():
+        text = line.partition(": ")[2]
+        if not text.startswith(" "):
+            m = re.search(r"(%s)<[^>]*>" % "|".join(kernels), text)
+            name = m.group(0) if m else None
+        elif name:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("stack", r"(\d+) bytes stack frame")):
+                m = re.search(pat, text)
+                if m:
+                    seen.setdefault(name, {})[key] = int(m.group(1))
+    for name, r in seen.items():
+        print(f"ptxas {name}: {r.get('registers')} registers, "
+              f"{r.get('stack')} bytes stack frame", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -517,10 +547,12 @@ def compare(torch, name, args, dtype):
     return rel, abs_err
 
 
-def hsbl_check(torch, name, args, dtype):
+def hsbl_check(torch, name, args, dtype, label="kernel benchmark  ",
+               regimes=None):
     """KPP's boundary-layer depth column by column, kernel against plain:
     one rounding apart at a threshold test moves a whole column.  Prints
-    the columns that differ and the seeded regimes the inputs reach."""
+    the columns that differ and the seeded regimes the inputs reach;
+    with `regimes` (KPP alone by default) each must be reached."""
     kern, plain = entry_fns(name)
     h_k, h_p = kern(*args)[-1], plain(*args)[-1]
     z_w = args[6] if name == "kpp" else args[4]
@@ -530,15 +562,17 @@ def hsbl_check(torch, name, args, dtype):
     moved = int(((h_k - h_p).abs() > tol).sum())
     no_cross = int((h_p == z_w[1]).sum())
     stable = int(((Bo > 0) & (Ustar > 0)).sum())
-    print(f"kernel benchmark   {name:15s} {dtype}: hsbl columns off by more "
+    print(f"{label} {name:15s} {dtype}: hsbl columns off by more "
           f"than {TOL[dtype]:.0e} rel: {moved} of {h_p.numel()}; plain "
           f"columns with no crossing (hsbl = z_w[1]) {no_cross}, under "
           f"stable forcing (Bo > 0, Ustar > 0) {stable}, unstable (Bo < 0) "
           f"{int((Bo < 0).sum())}", flush=True)
     if moved:
         FAILURES.append(f"{name} {dtype}: {moved} hsbl columns moved")
-    if name == "kpp" and not (0 < no_cross < h_p.numel() and stable
-                              and (Bo < 0).any()):
+    if regimes is None:
+        regimes = name == "kpp"
+    if regimes and not (0 < no_cross < h_p.numel() and stable
+                        and (Bo < 0).any()):
         FAILURES.append(f"{name} {dtype}: the seeded columns miss a regime")
 
 
@@ -618,6 +652,12 @@ PRSGRD_SHAPES = [s for s in REDESIGN_SHAPES if s[0] != "double_gyre"] + [
 # kernel 2's tracer counts: one, the apps' two, and five (three groups of
 # csrc/tadv.cu's two tracers a block, the last with one)
 TADV_NT = (1, 2, 5)
+# the column sweeps of kernels 6, 14 and 15: REDESIGN_SHAPES and the
+# minimal depth N = 2 on a 4-lane channel
+COLUMN_SHAPES = REDESIGN_SHAPES + [("upwelling", (2, 2, 2))]
+# spline_vdiff's (NT, NAT): one, two and five tracers diffused with one or
+# two Akt profiles (tracers past NAT take the last one's)
+VDIFF_TRACERS = [(NT, NAT) for NT in (1, 2, 5) for NAT in (1, 2)]
 
 
 def with_tracers(torch, args, NT):
@@ -626,6 +666,32 @@ def with_tracers(torch, args, NT):
     qs = torch.stack([q[n % 2] * (1.0 + 0.1 * n) for n in range(NT)])
     auxs = torch.stack([aux[n % 2] for n in range(NT)])
     return (cfg.replace(NT=NT), grid, qs, auxs) + args[4:]
+
+
+def vdiff_tracers(torch, args, NT, NAT):
+    """A spline_vdiff entry point's args with NT tracers made from the
+    app's and NAT Akt profiles (the n-th 1 + n/2 times the first)."""
+    cfg, pre, Hz, Akt = args
+    pres = torch.stack([pre[n % pre.shape[0]] * (1.0 + 0.1 * n)
+                        for n in range(NT)])
+    Akts = torch.stack([Akt[0] * (1.0 + 0.5 * n) for n in range(NAT)])
+    return cfg.replace(NT=NT), pres, Hz, Akts
+
+
+def column_cases(torch, env):
+    """prep's and KPP's args on one app's seeded state whose tracer
+    columns are turned upside down in every other column (statically
+    unstable there, so no critical Richardson number is crossed); KPP
+    alone takes the EOS of the same tracers."""
+    from roms_tpu_torch.ops import rho as rho_op
+    args, _ = entry_inputs(torch, "prep", *env, 5)
+    cfg, t, z_r, Hz, z_w, u_r, v_r, *planes = args
+    Mj, Li = t.shape[2:]
+    col = torch.arange(Mj * Li, device=t.device).reshape(Mj, Li)
+    t = torch.where(col % 2 == 0, t.flip(1), t)
+    _, pden, _, _, bvf = rho_op.rho_eos_plain(cfg, t, z_r, Hz, z_w)
+    return {"prep": (cfg, t, z_r, Hz, z_w, u_r, v_r, *planes),
+            "kpp": (cfg, u_r, v_r, pden, bvf, Hz, z_w, *planes)}
 
 
 def redesign_cases(torch, env):
@@ -651,9 +717,12 @@ def redesign_cases(torch, env):
 def redesign_checks(torch):
     """Kernels 2, 3 and 4 at REDESIGN_SHAPES with the app's lanes and with
     closed walls, tadv's predictor and uv_solve from iic 0, 1 and 5, tadv
-    at one, two and five tracers; kernel 9 at PRSGRD_SHAPES; kernel 12 on
-    4-lane channels; the float64 launches over shared memory refused."""
-    from roms_tpu_torch.ops import prsgrd, rhs3d, tadv, uv
+    at one, two and five tracers; kernel 9 at PRSGRD_SHAPES; kernels 6,
+    14 and 15 at COLUMN_SHAPES (spline_vdiff at VDIFF_TRACERS, bitwise;
+    KPP's boundary layer column by column, both forcing regimes and
+    columns with and without a crossing); kernel 12 on 4-lane channels;
+    the float64 launches over shared memory refused."""
+    from roms_tpu_torch.ops import _lib, kpp, prsgrd, rhs3d, tadv, uv, vdiff
     for app, (Lm, Mm, N) in REDESIGN_SHAPES:
         for dtype in ("float64", "float32"):
             env = setup(torch, Lm, Mm, N, dtype, app=app)
@@ -672,6 +741,29 @@ def redesign_checks(torch):
             print(f"kernel redesign {app:11s} prsgrd32        {dtype} app    "
                   f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
                   f"abs {abs_err:.3e}", flush=True)
+            del env
+    for app, (Lm, Mm, N) in COLUMN_SHAPES:
+        for dtype in ("float64", "float32"):
+            env = setup(torch, Lm, Mm, N, dtype, app=app)
+            for name, args in column_cases(torch, env).items():
+                rel, abs_err = compare(torch, name, args, dtype)
+                print(f"kernel redesign {app:11s} {name:15s} {dtype} app    "
+                      f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} "
+                      f"max abs {abs_err:.3e}", flush=True)
+                hsbl_check(torch, name, args, dtype,
+                           label=f"kernel redesign {app:11s}", regimes=True)
+            args, _ = entry_inputs(torch, "spline_vdiff", *env, 5)
+            for NT, NAT in VDIFF_TRACERS:
+                rel, abs_err = compare(torch, "spline_vdiff", vdiff_tracers(
+                    torch, args, NT, NAT), dtype)
+                print(f"kernel redesign {app:11s} spline_vdiff    {dtype} "
+                      f"app    N={N} Mj={Mm + 2} Li={Lm + 2} NT={NT} "
+                      f"NAT={NAT}: max rel {rel:.3e} max abs {abs_err:.3e}",
+                      flush=True)
+                if rel:
+                    FAILURES.append(f"spline_vdiff {dtype} {app} N={N} NT="
+                                    f"{NT} NAT={NAT}: max rel {rel:.3e}, not "
+                                    "bitwise equal to its plain version")
             del env
     for Mm in (2, 3):
         env = setup(torch, 2, Mm, 4, "float64", app="upwelling")
@@ -706,6 +798,21 @@ def redesign_checks(torch):
         ("tadv_corrector tile (64, 128)",
          big_tile(tadv, tadv.corrector, argst)),
         ("prsgrd32 tile (64, 128)", big_tile(prsgrd, prsgrd.prsgrd32, argsp))]
+    # the column sweeps at the shallowest float64 depth whose state
+    # exceeds a block's shared memory
+    for name, smem_of, call in (
+            ("spline_vdiff", lambda n: vdiff.vdiff_launch_shape(
+                n, 2, 10, 12, 8)[2], vdiff.spline_vdiff),
+            ("prep", lambda n: kpp.prep_launch_shape(n, 10, 12, 8)[2],
+             entry_fns("prep")[0]),
+            ("kpp", lambda n: kpp.prep_launch_shape(n, 10, 12, 8)[2],
+             kpp.kpp)):
+        N = 2
+        while smem_of(N) <= _lib.SMEM_PER_BLOCK:
+            N += 1
+        env = setup(torch, 10, 8, N, "float64", app="benchmark")
+        deep, _ = entry_inputs(torch, name, *env, 5)
+        refusals.append((f"{name} N={N}", lambda c=call, a=deep: c(*a)))
     for what, call in refusals:
         try:
             call()
@@ -1065,6 +1172,9 @@ def kernel_table(torch, app, counts):
         kern, plain = entry_fns(name)
         outs = outputs(kern(*args))
         byts = nbytes(ins) + nbytes(outs)
+        if name == "prep":
+            # Akt is written for each active tracer (outs has one profile)
+            byts += (args[0].NAT - 1) * nbytes([outs[5]])
         npts = outs[0].numel()
         flops = FLOPS_PER_POINT[name] * npts
         if name.startswith("fast_loop"):
@@ -1152,6 +1262,23 @@ def kernel_table(torch, app, counts):
             print(f"{app} uv_solve {B} threads a block, {blocks} blocks (u "
                   f"and v), {smem} B dynamic shared memory a block "
                   f"({4 * N - 2} values a thread)", flush=True)
+        if name in ("prep", "kpp", "spline_vdiff"):
+            from roms_tpu_torch.ops import kpp as kpp_op
+            from roms_tpu_torch.ops import vdiff as vdiff_op
+            size = outs[0].element_size()
+            if name == "spline_vdiff":
+                NT, N, Mj, Li = outs[0].shape
+                B, blocks, smem = vdiff_op.vdiff_launch_shape(
+                    N, NT, Mj, Li, size)
+                vals, how = 4 * N - 2, f"{NT} tracers"
+            else:
+                N, Mj, Li = outs[4 if name == "prep" else 0].shape
+                N -= 1
+                B, blocks, smem = kpp_op.prep_launch_shape(N, Mj, Li, size)
+                vals, how = kpp_op.column_values(N), "the rest from L2"
+            print(f"{app} {name} {B} threads a block, {blocks} blocks, "
+                  f"{smem} B dynamic shared memory a block ({vals} values a "
+                  f"thread, {how})", flush=True)
         if name == "fast_loop_blocked":
             # its own design's floor: each launch reads the carry and the
             # statics and writes the carry
@@ -1191,20 +1318,25 @@ def fast_loop_terms(torch, app):
 
 
 # the launch shapes timed against the chosen ones (ops/rhs3d.py TILE,
-# ops/uv.py SOLVE_THREADS, ops/tadv.py TILE, ops/prsgrd.py TILE)
+# ops/uv.py SOLVE_THREADS, ops/tadv.py TILE, ops/prsgrd.py TILE,
+# ops/kpp.py PREP_THREADS, ops/vdiff.py VDIFF_THREADS)
 RHS3D_TILES = ((8, 32), (16, 16), (4, 64), (8, 16))
 UV_SOLVE_THREADS = (64, 96, 128, 192)
 TADV_TILES = ((7, 31), (8, 32), (15, 15), (16, 16), (4, 64))
 PRSGRD_TILES = ((7, 31), (15, 15), (3, 63), (7, 15), (3, 31))
+PREP_THREADS_TRIED = (32, 64, 96, 128)
+VDIFF_THREADS_TRIED = (64, 96, 128, 192, 256)
 
 
 def launch_shapes(torch, app):
     """rhs3d's time with each tile of RHS3D_TILES (and with its advection
     or Coriolis term off), uv_solve's with each block size of
-    UV_SOLVE_THREADS, tadv's (both modes) with each of TADV_TILES and
-    prsgrd's with each of PRSGRD_TILES at the app's full width, float32,
-    each output bitwise against the chosen shape's."""
-    from roms_tpu_torch.ops import prsgrd, rhs3d, tadv, uv
+    UV_SOLVE_THREADS, tadv's (both modes) with each of TADV_TILES,
+    prsgrd's with each of PRSGRD_TILES, and prep's and spline_vdiff's
+    with each block size of PREP_THREADS_TRIED and VDIFF_THREADS_TRIED at
+    the app's full width, float32, each output bitwise against the chosen
+    shape's."""
+    from roms_tpu_torch.ops import kpp, prsgrd, rhs3d, tadv, uv, vdiff
 
     def tile_of(mod):
         return lambda: mod.TILE, lambda x: setattr(mod, "TILE", x)
@@ -1215,7 +1347,14 @@ def launch_shapes(torch, app):
              lambda x: uv.SOLVE_THREADS.__setitem__(4, x)),
             ("tadv_predictor", TADV_TILES, *tile_of(tadv)),
             ("tadv_corrector", TADV_TILES, *tile_of(tadv)),
-            ("prsgrd32", PRSGRD_TILES, *tile_of(prsgrd))):
+            ("prsgrd32", PRSGRD_TILES, *tile_of(prsgrd)),
+            ("prep", PREP_THREADS_TRIED, lambda: kpp.PREP_THREADS[4],
+             lambda x: kpp.PREP_THREADS.__setitem__(4, x)),
+            ("spline_vdiff", VDIFF_THREADS_TRIED,
+             lambda: vdiff.VDIFF_THREADS[4],
+             lambda x: vdiff.VDIFF_THREADS.__setitem__(4, x))):
+        if name not in APPS[app]["entries"]:
+            continue
         args, _ = entry_inputs(torch, name, *env, 5)
         kern = entry_fns(name)[0]
         chosen = get()

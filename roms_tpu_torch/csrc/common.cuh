@@ -10,8 +10,9 @@
 namespace roms {
 
 constexpr int kThreads = 256;
-// deepest column the column kernels take (ops/_lib.py KNMAX): their
-// per-thread local arrays are sized by it
+// deepest column uv_finish takes (ops/_lib.py KNMAX): its per-thread
+// local arrays are sized by it (the other column kernels keep their
+// columns in shared memory sized by N at runtime)
 constexpr int kNmax = 64;
 
 // jnp.roll wrap of i + s for |s| < n

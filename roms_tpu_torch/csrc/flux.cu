@@ -1,4 +1,4 @@
-// Kernel 6: horizontal mass fluxes fused with the vertical mass flux
+// Kernels 7 and 8: horizontal mass fluxes fused with the vertical mass flux
 // (set_massflux.F:140-163 + omega.F:200-345), two entry points in one
 // kernel:
 //   flux_omega: Huon = Hz_u*u*on_u, Hvom = Hz_v*v*om_v with the EW ring

@@ -11,20 +11,38 @@
 // Bound on the H100: bytes.  KPP mode reads u_r, v_r, pden, Hz (N), bvf,
 // z_w (N+1) and 7 planes and writes Akv, Akt, ghT, ghS (N+1) and hsbl;
 // prep mode reads t (NT N), z_r, Hz, u_r, v_r (N), z_w (N+1) and writes
-// rho, pden (N), rhoA, rhoS and the KPP outputs.  A few hundred flops a
-// level (two exp a level and the similarity pow calls) stay under the
-// card's flop/byte balance.
+// rho, pden (N), rhoA, rhoS and the KPP outputs, Akt once for each of the
+// NAT active tracers (the step's stacked Akt and ghats, no copy after).
+// A few hundred flops a level (the EOS, the interior mixing, and two exp
+// and the similarity pow calls at the levels above the first crossing and
+// inside the boundary layer) stay under the card's flop/byte balance.
 //
 // Design: one thread per (j, i) column, consecutive threads on
-// consecutive i, so every k-plane load and store is coalesced.  N is a
-// runtime value: the column arrays (pden, bvf, the Thomas coefficients
-// and the three spline derivatives, the shortwave fractions) live in
-// per-thread local arrays bounded by roms::kNmax, which the wrapper
-// checks; in prep mode pden and bvf are filled by roms::eos_column
-// (rho_col.cuh) and bvf never reaches device memory.  The bulk
-// Richardson number is scanned upwards as it is computed: the largest k
-// with FC[k] < Ric <= FC[k-1] wins, as in the reference's scan, so FC
-// needs no array.
+// consecutive i, so every k-plane load and store is coalesced.  What the
+// column carries from one sweep to the next lives in dynamic shared
+// memory laid out [k][thread] and sized by N at runtime (ops/kpp.py
+// prep_launch_shape): the interior bvf, the Thomas cp and the three spline
+// derivatives, 5 N - 6 values; no local array, no stack frame.  The inputs
+// a later step reads again (pden, Hz, z_w, u_r, v_r) come from L2, which
+// was faster than keeping them in shared memory at the cost of occupancy.
+//   1. top-down: the column EOS (roms::eos_column, rho_col.cuh; its sink
+//      writes rho and pden out and keeps the interior bvf), or the load of
+//      bvf (KPP mode);
+//   2. bottom-up: the Thomas forward elimination of the spline
+//      derivatives, one factorization for three right-hand sides (pden,
+//      u_r, v_r; u_r and v_r read here for the first time), the next
+//      kAhead levels in flight;
+//   3. top-down: the back substitution, the finished derivatives in place,
+//      and the interior mixing of each interface written out;
+//   4. the bulk Richardson number FC from the top down to the first
+//      crossing (the largest k with FC[k] < Ric <= FC[k-1]), and
+//   5. the shape-function profile and nonlocal transport of the levels
+//      inside the boundary layer, written over step 3's.
+// Steps 4 and 5 are the costly per-level work, and how many levels a
+// column needs varies from column to column: the warp shares its columns'
+// levels out over its 32 lanes (shuffles, and reads of the other lanes'
+// slots), so a warp takes about as many rounds as its columns' levels
+// over 32, not its deepest column's.
 //
 // Levels are picked by threshold tests (FC against Ric, z_w against
 // hsbl, the signs of Bf and Bfsfc), so one rounding difference can move
@@ -38,7 +56,6 @@
 namespace {
 
 using roms::EosParams;
-using roms::kNmax;
 using roms::mul_rn;
 
 // core/lmd.py (mod_scalars.F:1635-1712)
@@ -49,6 +66,9 @@ constexpr double AM = 1.257, AS = -28.86, CM = 8.36, CS = 98.96;
 constexpr double CEKMAN = 0.7, CMONOB = 1.0, EPSILON = 0.1;
 constexpr double ZETAM = -0.2, ZETAS = -1.0;
 constexpr double C3 = 1.0 / 3.0, C6 = 1.0 / 6.0;
+
+// levels steps 1 and 2 keep in flight ahead of the one they work on
+constexpr int kAhead = 4;
 
 // derived constants, computed by the wrapper as the plain version does
 // (ops/kpp.py kpp_params)
@@ -80,34 +100,50 @@ struct KppArgs {
   T* rhoA;                    // prep mode
   T* rhoS;                    // prep mode
   T* Akv;
-  T* Akt;
+  T* Akt;                     // nat slots of N+1 levels
   T* ghT;
   T* ghS;
   T* hsbl;
+  int NT, N, P, nat;
+};
+
+// values a thread keeps in shared memory (ops/kpp.py column_values): the
+// interior bvf (N-1), the Thomas cp (N-2) and the three spline derivatives
+// (N-1 each)
+inline int column_values(int N) { return 5 * N - 6; }
+
+// a level-indexed column: the thread's shared-memory slots [k][thread] or
+// its column in device memory; lane(dc) is the same for the column dc
+// lanes over (consecutive threads hold consecutive columns)
+template <typename T>
+struct Col {
+  T* p;
+  size_t s;
+  __device__ __forceinline__ T operator[](int k) const { return p[k * s]; }
+  __device__ __forceinline__ T& at(int k) const { return p[k * s]; }
+  __device__ __forceinline__ Col lane(int dc) const { return {p + dc, s}; }
+};
+
+// eos_column sink of the prep mode: rho and pden to device memory, the
+// interior bvf to the thread's slots
+template <typename T>
+struct KeepColumn {
+  T* rho;
+  T* pden;
+  size_t P, c;
+  Col<T> bv;
+  __device__ void level(int k, T r, T p_) {
+    const size_t o = k * P + c;
+    rho[o] = r;
+    pden[o] = p_;
+  }
+  __device__ void interface(int k, T b) { bv.at(k - 1) = b; }
 };
 
 template <typename T>
 __device__ __forceinline__ T mn(T a, T b) { return a < b ? a : b; }
 template <typename T>
 __device__ __forceinline__ T mx(T a, T b) { return a > b ? a : b; }
-
-// eos_column sink of the prep mode: rho and pden to device memory, pden
-// and bvf kept in the thread
-template <typename T>
-struct KeepColumn {
-  T* rho;
-  T* pden;
-  int P, c;
-  T* pd;
-  T* bv;
-  __device__ void level(int k, T r, T p_) {
-    const size_t o = static_cast<size_t>(k) * P + c;
-    rho[o] = r;
-    pden[o] = p_;
-    pd[k] = p_;
-  }
-  __device__ void interface(int k, T b) { bv[k] = b; }
-};
 
 // fraction of shortwave left at depth (core/lmd.py swdk_frac)
 template <typename T>
@@ -116,26 +152,26 @@ __device__ __forceinline__ T swdk(T depth, const KppParams& p) {
          mul_rn(T(1.0 - p.r1), exp(mul_rn(-depth, T(p.o_mu2))));
 }
 
-// turbulent velocity scales (core/lmd.py _wscale)
+// turbulent velocity scales (core/lmd.py _wscale); the branch not taken
+// is not evaluated (the plain version forms both and selects)
 template <typename T>
 __device__ void wscale(T Ustar, T zetahat, T vonKar, T& wm, T& ws) {
   const T U3 = mul_rn(mul_rn(Ustar, Ustar), Ustar);
   const T zetapar = zetahat / (U3 + T(SMALL));
-  const T wm_stab = mul_rn(vonKar, Ustar) /
-                    (T(1.0) + mul_rn(T(5.0), zetapar));
+  if (zetahat >= T(0.0)) {
+    wm = ws = mul_rn(vonKar, Ustar) / (T(1.0) + mul_rn(T(5.0), zetapar));
+    return;
+  }
   const T one16 = mx(T(1.0) - mul_rn(T(16.0), zetapar), T(0.0));
   const T kU = mul_rn(vonKar, Ustar);
-  const T wm_uns = zetapar > T(ZETAM)
+  wm = zetapar > T(ZETAM)
       ? mul_rn(kU, pow(one16, T(0.25)))
       : mul_rn(vonKar, pow(mx(mul_rn(T(AM), U3) - mul_rn(T(CM), zetahat),
                               T(0.0)), T(1.0 / 3.0)));
-  const T ws_uns = zetapar > T(ZETAS)
+  ws = zetapar > T(ZETAS)
       ? mul_rn(kU, sqrt(one16))
       : mul_rn(vonKar, pow(mx(mul_rn(T(AS), U3) - mul_rn(T(CS), zetahat),
                               T(0.0)), T(1.0 / 3.0)));
-  const bool stable = zetahat >= T(0.0);
-  wm = stable ? wm_stab : wm_uns;
-  ws = stable ? wm_stab : ws_uns;
 }
 
 // interior shear / internal-wave / convective mixing at interface k
@@ -160,236 +196,462 @@ __device__ void interior_mix(T dU, T dV, T b, T& akv, T& akt) {
   akt = akt + mul_rn(T(NU0C), nuc);
 }
 
-template <typename T, bool PREP>
-__global__ void kpp_kernel(KppArgs<T> a, int NT, int N, int P, EosParams e,
-                           KppParams p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= P) return;
+// the bulk Richardson number FC of level k at `depth` below the surface
+// (lmd_skpp.F), from the finished spline derivatives at its interfaces k
+// (dRk, ...) and k+1 (dRa, ...); sw returns the shortwave fraction there
+template <typename T>
+__device__ __forceinline__ T bulk_richardson(
+    T depth, T pdk, T hz, T urk, T vrk, T dRk, T dRa, T dUk, T dUa, T dVk,
+    T dVa, T bvk, T Rref, T Uref, T Vref, T Ustar, T Bo, T Bosol,
+    const KppParams& p, T& sw) {
   const T vonKar = T(p.vonKar);
-  T pd[kNmax], bv[kNmax + 1];
-  if (PREP) {
-    KeepColumn<T> sink{a.rho, a.pden, P, c, pd, bv};
-    T A, S;
-    roms::eos_column(a.t, a.z_r, a.Hz, a.z_w, NT, N, P, c, e, sink, A, S);
-    bv[0] = T(0);
-    bv[N] = T(0);
-    a.rhoA[c] = A;
-    a.rhoS[c] = S;
-  } else {
-    for (int k = 0; k < N; ++k)
-      pd[k] = a.pden_in[static_cast<size_t>(k) * P + c];
-    for (int k = 0; k <= N; ++k)
-      bv[k] = a.bvf_in[static_cast<size_t>(k) * P + c];
-  }
-  const T* Hz = a.Hz + c;
-  const T* zw = a.z_w + c;
-  const T* ur = a.u_r + c;
-  const T* vr = a.v_r + c;
-  const size_t sP = static_cast<size_t>(P);
+  sw = swdk(depth, p);
+  const T Bf = Bo + mul_rn(Bosol, T(1.0) - sw);
+  const T sl0 = mul_rn(T(EPSILON), depth);
+  const T sigma = Bf < T(0.0) ? mn(sl0, depth) : depth;
+  T wm, ws;
+  wscale(Ustar, mul_rn(mul_rn(vonKar, sigma), Bf), vonKar, wm, ws);
+  const T Rk = pdk - mul_rn(hz, mul_rn(T(C3), dRk) + mul_rn(T(C6), dRa));
+  const T Uk = urk - mul_rn(hz, mul_rn(T(C3), dUk) + mul_rn(T(C6), dUa));
+  const T Vk = vrk - mul_rn(hz, mul_rn(T(C3), dVk) + mul_rn(T(C6), dVa));
+  const T Ritop = mul_rn(mul_rn(T(p.neg_gorho0), Rref - Rk), depth);
+  const T dUr = Uref - Uk, dVr = Vref - Vk;
+  const T Ribot = mul_rn(dUr, dUr) + mul_rn(dVr, dVr) +
+                  mul_rn(mul_rn(mul_rn(T(p.Vtc), depth), ws),
+                         sqrt(fabs(bvk)));
+  return Ritop / (Ribot + T(EPS));
+}
 
-  // ---- spline derivatives: one Thomas factorization, three RHS --------
-  // rows m = 0..N-2 (interfaces 1..N-1): lower Hz[m] (0 at m = 0),
-  // diagonal 2 (Hz[m] + Hz[m+1]), upper Hz[m+1] (0 at m = N-2); the
-  // sweep leaves the solution of row m in dR[m+1] (dR[0] = dR[N] = 0)
-  T cp[kNmax], dR[kNmax + 1], dU[kNmax + 1], dV[kNmax + 1];
-  const int M = N - 1;
-  {
-    const T hz0 = Hz[0], hz1 = Hz[sP];
-    const T inv0 = T(1.0) / mul_rn(T(2.0), hz0 + hz1);
-    cp[0] = mul_rn(M > 1 ? hz1 : T(0.0), inv0);
-    dR[1] = mul_rn(mul_rn(T(6.0), pd[1] - pd[0]), inv0);
-    dU[1] = mul_rn(mul_rn(T(6.0), ur[sP] - ur[0]), inv0);
-    dV[1] = mul_rn(mul_rn(T(6.0), vr[sP] - vr[0]), inv0);
-    for (int m = 1; m < M; ++m) {
-      const T lo = Hz[m * sP], hn = Hz[(m + 1) * sP];
-      const T denom = T(1.0) / (mul_rn(T(2.0), lo + hn) -
-                                mul_rn(lo, cp[m - 1]));
-      cp[m] = mul_rn(m < M - 1 ? hn : T(0.0), denom);
-      dR[m + 1] = mul_rn(mul_rn(T(6.0), pd[m + 1] - pd[m]) -
-                         mul_rn(lo, dR[m]), denom);
-      dU[m + 1] = mul_rn(mul_rn(T(6.0), ur[(m + 1) * sP] - ur[m * sP]) -
-                         mul_rn(lo, dU[m]), denom);
-      dV[m + 1] = mul_rn(mul_rn(T(6.0), vr[(m + 1) * sP] - vr[m * sP]) -
-                         mul_rn(lo, dV[m]), denom);
-    }
-    for (int m = M - 2; m >= 0; --m) {
-      dR[m + 1] = dR[m + 1] - mul_rn(cp[m], dR[m + 2]);
-      dU[m + 1] = dU[m + 1] - mul_rn(cp[m], dU[m + 2]);
-      dV[m + 1] = dV[m + 1] - mul_rn(cp[m], dV[m + 2]);
-    }
-    dR[0] = dU[0] = dV[0] = T(0.0);
-    dR[N] = dU[N] = dV[N] = T(0.0);
-  }
+// a column's boundary-layer scales, the profile-matching coefficients
+// and its surface fluxes: what a level inside its boundary layer needs
+template <typename T>
+struct BoundaryLayer {
+  T Ustar, Bo, Bosol, zwN, zbl, sl_dpth, Kv1, dKv1, Kt1, dKt1;
+  T flxT, flxS, srflx;
+};
 
-  // ---- surface buoyancy forcing and shortwave at interfaces -----------
-  const T Ustar = a.Ustar[c], Bo = a.Bo[c], Bosol = a.Bosol[c];
-  const T zwN = zw[N * sP];
-  T swd[kNmax + 1];
-  for (int k = 0; k <= N; ++k) swd[k] = swdk(zwN - zw[k * sP], p);
+// the shape-function profile and the nonlocal transport at a level inside
+// the boundary layer, at `depth` with shortwave fraction sw
+template <typename T>
+__device__ __forceinline__ void boundary_level(const BoundaryLayer<T>& b,
+                                               T depth, T sw,
+                                               const KppParams& p, T& akv,
+                                               T& akt, T& ghT, T& ghS) {
+  const T vonKar = T(p.vonKar);
+  const T Bf = b.Bo + mul_rn(b.Bosol, T(1.0) - sw);
+  const T sigma = Bf < T(0.0) ? mn(b.sl_dpth, depth) : depth;
+  T wm, ws;
+  wscale(b.Ustar, mul_rn(mul_rn(vonKar, sigma), Bf), vonKar, wm, ws);
+  const T sig = depth / (b.zbl + T(EPS));
+  const T a1 = sig - T(2.0);
+  const T a2 = T(3.0) - mul_rn(T(2.0), sig);
+  const T a3 = sig - T(1.0);
+  const T Gm = a1 + mul_rn(a2, b.Kv1) + mul_rn(a3, b.dKv1);
+  akv = mul_rn(mul_rn(depth, wm), T(1.0) + mul_rn(sig, Gm));
+  const T Gt = a1 + mul_rn(a2, b.Kt1) + mul_rn(a3, b.dKt1);
+  akt = mul_rn(mul_rn(depth, ws), T(1.0) + mul_rn(sig, Gt));
+  ghT = ghS = T(0.0);
+  if (Bf < T(0.0)) {
+    const T cff_nl = T(p.Cg) / (mul_rn(b.zbl, ws) + T(EPS));
+    ghT = mul_rn(-cff_nl, b.flxT + mul_rn(b.srflx, T(1.0) - sw));
+    ghS = mul_rn(cff_nl, b.flxS);
+  }
+}
 
-  // ---- bulk Richardson number, scanned upwards (lmd_skpp.F) -----------
-  const T hzt = Hz[(N - 1) * sP];
-  const T Rref = pd[N - 1] + mul_rn(hzt, mul_rn(T(C3), dR[N]) +
-                                            mul_rn(T(C6), dR[N - 1]));
-  const T Uref = ur[(N - 1) * sP] + mul_rn(hzt, mul_rn(T(C3), dU[N]) +
-                                                   mul_rn(T(C6), dU[N - 1]));
-  const T Vref = vr[(N - 1) * sP] + mul_rn(hzt, mul_rn(T(C3), dV[N]) +
-                                                   mul_rn(T(C6), dV[N - 1]));
-  int kcross = 0;
-  T FCk = T(0), FCkm1 = T(0), FCprev = T(0);
-  for (int k = 0; k < N; ++k) {
-    const T depth = zwN - zw[k * sP];
-    const T Bf = Bo + mul_rn(Bosol, T(1.0) - swd[k]);
-    const T sl0 = mul_rn(T(EPSILON), depth);
-    const T sigma = Bf < T(0.0) ? mn(sl0, depth) : depth;
-    T wm, ws;
-    wscale(Ustar, mul_rn(mul_rn(vonKar, sigma), Bf), vonKar, wm, ws);
-    const T hz = Hz[k * sP];
-    const T Rk = pd[k] - mul_rn(hz, mul_rn(T(C3), dR[k]) +
-                                        mul_rn(T(C6), dR[k + 1]));
-    const T Uk = ur[k * sP] - mul_rn(hz, mul_rn(T(C3), dU[k]) +
-                                             mul_rn(T(C6), dU[k + 1]));
-    const T Vk = vr[k * sP] - mul_rn(hz, mul_rn(T(C3), dV[k]) +
-                                             mul_rn(T(C6), dV[k + 1]));
-    const T Ritop = mul_rn(mul_rn(T(p.neg_gorho0), Rref - Rk), depth);
-    const T dUr = Uref - Uk, dVr = Vref - Vk;
-    const T Ribot = mul_rn(dUr, dUr) + mul_rn(dVr, dVr) +
-                    mul_rn(mul_rn(mul_rn(T(p.Vtc), depth), ws),
-                           sqrt(fabs(bv[k])));
-    const T FC = Ritop / (Ribot + T(EPS));
-    if (k >= 2 && FC < T(RIC) && FCprev >= T(RIC)) {
-      kcross = k;
-      FCk = FC;
-      FCkm1 = FCprev;
-    }
-    FCprev = FC;
-  }
-  if (FCprev >= T(RIC)) {      // k = N, where FC = 0
-    kcross = N;
-    FCk = T(0.0);
-    FCkm1 = FCprev;
-  }
-  T hsbl;
-  if (kcross >= 2) {
-    const T zwk = zw[kcross * sP], zwkm1 = zw[(kcross - 1) * sP];
-    hsbl = (mul_rn(FCkm1 - T(RIC), zwk) + mul_rn(T(RIC) - FCk, zwkm1)) /
-           (FCkm1 - FCk + T(SMALL));
-  } else {
-    hsbl = zw[sP];
-  }
+constexpr unsigned kFull = 0xffffffffu;
 
-  // ---- Ekman / Monin-Obukhov caps under stable forcing ----------------
-  {
-    const T Bfsfc = Bo + mul_rn(Bosol, T(1.0) - swdk(zwN - hsbl, p));
-    const T hekman = mul_rn(T(CEKMAN), Ustar) / mx(a.absf[c], T(EPS));
-    const T hmonob = mul_rn(T(CMONOB), mul_rn(mul_rn(Ustar, Ustar), Ustar)) /
-                     mx(mul_rn(vonKar, Bfsfc), T(EPS));
-    const T cap = zwN - mn(mn(hekman, hmonob), zwN - hsbl);
-    if (Ustar > T(0.0) && Bfsfc > T(0.0)) hsbl = cap;
-    hsbl = mn(mx(hsbl, zw[0]), zwN);
-  }
-  int ksbl = 0;
-  for (int k = 0; k < N; ++k) ksbl += zw[k * sP] < hsbl ? 1 : 0;
-  ksbl = ksbl > 1 ? ksbl : 1;
-
-  // ---- boundary-layer scales and profile matching ---------------------
-  const T Bfsfc = Bo + mul_rn(Bosol, T(1.0) - swdk(zwN - hsbl, p));
-  const T zbl = zwN - hsbl;
-  const T sl_dpth = mul_rn(T(EPSILON), zbl);
-  const T sig_bl = Bfsfc > T(0.0) ? zbl : mul_rn(T(EPSILON), zbl);
-  T wm_bl, ws_bl;
-  wscale(Ustar, mul_rn(mul_rn(vonKar, sig_bl), Bfsfc), vonKar, wm_bl, ws_bl);
-  const T U2 = mul_rn(Ustar, Ustar);
-  const T f1 = mul_rn(mul_rn(T(5.0), mx(Bfsfc, T(0.0))), vonKar) /
-               (mul_rn(U2, U2) + T(EPS));
-  const T zw_ks = zw[ksbl * sP], zw_ksm1 = zw[(ksbl - 1) * sP];
-  const T cffk = T(1.0) / (zw_ks - zw_ksm1);
-  const T cff_dn = mul_rn(cffk, hsbl - zw_ksm1);
-  const T cff_up = mul_rn(cffk, zw_ks - hsbl);
-  T Kv_at, Kt_at, Kv_at1, Kt_at1;
-  if (ksbl == N) {
-    Kv_at = T(p.akv_bak);
-    Kt_at = T(p.akt_bak0);
-  } else {
-    interior_mix(dU[ksbl], dV[ksbl], bv[ksbl], Kv_at, Kt_at);
-  }
-  if (ksbl == 1) {
-    Kv_at1 = T(p.akv_bak);
-    Kt_at1 = T(p.akt_bak0);
-  } else {
-    interior_mix(dU[ksbl - 1], dV[ksbl - 1], bv[ksbl - 1], Kv_at1, Kt_at1);
-  }
-  const T Kv_bl = mul_rn(cff_dn, Kv_at) + mul_rn(cff_up, Kv_at1);
-  const T dKv_bl = mul_rn(cffk, Kv_at - Kv_at1);
-  const T Kv1 = Kv_bl / (mul_rn(zbl, wm_bl) + T(EPS));
-  const T dKv1 = mn(-dKv_bl / (wm_bl + T(EPS)) - mul_rn(Kv_bl, f1), T(0.0));
-  const T Kt_bl = mul_rn(cff_dn, Kt_at) + mul_rn(cff_up, Kt_at1);
-  const T dKt_bl = mul_rn(cffk, Kt_at - Kt_at1);
-  const T Kt1 = Kt_bl / (mul_rn(zbl, ws_bl) + T(EPS));
-  const T dKt1 = mn(-dKt_bl / (ws_bl + T(EPS)) - mul_rn(Kt_bl, f1), T(0.0));
-
-  // ---- outputs: shape-function profile inside the boundary layer,
-  // interior mixing below it, nonlocal transport ------------------------
-  const T flxT = a.flxT[c], flxS = a.flxS[c], srflx = a.srflx[c];
-  a.Akv[c] = T(p.akv_bak);
-  a.Akt[c] = T(p.akt_bak0);
-  a.ghT[c] = T(0.0);
-  a.ghS[c] = T(0.0);
-  for (int k = 1; k < N; ++k) {
-    const size_t o = k * sP + c;
-    T akv, akt;
-    interior_mix(dU[k], dV[k], bv[k], akv, akt);
-    T ghT = T(0.0), ghS = T(0.0);
-    if (k > ksbl) {
-      const T depth = zwN - zw[k * sP];
-      const T Bf = Bo + mul_rn(Bosol, T(1.0) - swd[k]);
-      const T sigma = Bf < T(0.0) ? mn(sl_dpth, depth) : depth;
-      T wm, ws;
-      wscale(Ustar, mul_rn(mul_rn(vonKar, sigma), Bf), vonKar, wm, ws);
-      const T sig = depth / (zbl + T(EPS));
-      const T a1 = sig - T(2.0);
-      const T a2 = T(3.0) - mul_rn(T(2.0), sig);
-      const T a3 = sig - T(1.0);
-      const T Gm = a1 + mul_rn(a2, Kv1) + mul_rn(a3, dKv1);
-      akv = mul_rn(mul_rn(depth, wm), T(1.0) + mul_rn(sig, Gm));
-      const T Gt = a1 + mul_rn(a2, Kt1) + mul_rn(a3, dKt1);
-      akt = mul_rn(mul_rn(depth, ws), T(1.0) + mul_rn(sig, Gt));
-      if (Bf < T(0.0)) {
-        const T cff_nl = T(p.Cg) / (mul_rn(zbl, ws) + T(EPS));
-        ghT = mul_rn(-cff_nl, flxT + mul_rn(srflx, T(1.0) - swd[k]));
-        ghS = mul_rn(cff_nl, flxS);
-      }
-    }
-    a.Akv[o] = akv;
-    a.Akt[o] = akt;
-    a.ghT[o] = ghT;
-    a.ghS[o] = ghS;
-  }
-  const size_t oN = N * sP + c;
-  a.Akv[oN] = T(p.akv_bak);
-  a.Akt[oN] = T(p.akt_bak0);
-  a.ghT[oN] = T(0.0);
-  a.ghS[oN] = T(0.0);
-  a.hsbl[c] = hsbl;
+// every field of a BoundaryLayer from lane `src`
+template <typename T>
+__device__ __forceinline__ BoundaryLayer<T> shfl_layer(
+    const BoundaryLayer<T>& b, int src) {
+  BoundaryLayer<T> o;
+  o.Ustar = __shfl_sync(kFull, b.Ustar, src);
+  o.Bo = __shfl_sync(kFull, b.Bo, src);
+  o.Bosol = __shfl_sync(kFull, b.Bosol, src);
+  o.zwN = __shfl_sync(kFull, b.zwN, src);
+  o.zbl = __shfl_sync(kFull, b.zbl, src);
+  o.sl_dpth = __shfl_sync(kFull, b.sl_dpth, src);
+  o.Kv1 = __shfl_sync(kFull, b.Kv1, src);
+  o.dKv1 = __shfl_sync(kFull, b.dKv1, src);
+  o.Kt1 = __shfl_sync(kFull, b.Kt1, src);
+  o.dKt1 = __shfl_sync(kFull, b.dKt1, src);
+  o.flxT = __shfl_sync(kFull, b.flxT, src);
+  o.flxS = __shfl_sync(kFull, b.flxS, src);
+  o.srflx = __shfl_sync(kFull, b.srflx, src);
+  return o;
 }
 
 template <typename T, bool PREP>
-int launch(const KppArgs<T>& a, int NT, int N, int P, const EosParams& e,
-           const KppParams& p, void* stream) {
-  kpp_kernel<T, PREP><<<roms::blocks_for(P), roms::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a, NT, N, P, e,
-                                                             p);
+__global__ void kpp_kernel(const __grid_constant__ KppArgs<T> a,
+                           const __grid_constant__ EosParams e,
+                           const __grid_constant__ KppParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = blockDim.x, N = a.N;
+  const int lane = threadIdx.x & 31;
+  const size_t sP = static_cast<size_t>(a.P);
+  const size_t c = static_cast<size_t>(blockIdx.x) * B + threadIdx.x;
+  // a lane past the last column keeps its warp whole for the shuffles:
+  // it owns no column but does its share of the warp's work
+  const bool live = c < sP;
+  const T vonKar = T(p.vonKar);
+
+  // the thread's slots [k][thread] with a stride of B + 1 values, so that
+  // a lane reading its neighbours' levels meets no bank conflict; in the
+  // order of column_values
+  const size_t S = static_cast<size_t>(B) + 1;
+  T* s = reinterpret_cast<T*>(smem) + threadIdx.x;
+  auto slots = [&](int n) {
+    const Col<T> col{s, S};
+    s += static_cast<size_t>(n) * S;
+    return col;
+  };
+  auto column = [&](const T* f) { return Col<T>{const_cast<T*>(f) + c, sP}; };
+  // pden is read again from L2 (the prep mode's own output)
+  const Col<T> pd = column(PREP ? a.pden : a.pden_in);
+  const Col<T> bv = slots(N - 1), cp = slots(N - 2);
+  const Col<T> dR = slots(N - 1), dU = slots(N - 1), dV = slots(N - 1);
+  const Col<T> Hz = column(a.Hz), zw = column(a.z_w);
+  const Col<T> ur = column(a.u_r), vr = column(a.v_r);
+  const size_t slot = static_cast<size_t>(N + 1) * sP;   // an Akt tracer
+  // the outputs of level k of column c + dc
+  auto put = [&](int k, int dc, T akv, T akt, T ghT, T ghS) {
+    const size_t o = k * sP + c + dc;
+    a.Akv[o] = akv;
+    for (int n = 0; n < a.nat; ++n) a.Akt[n * slot + o] = akt;
+    a.ghT[o] = ghT;
+    a.ghS[o] = ghS;
+  };
+
+  T zw0 = T(0), zwN = T(0), Ustar = T(0), Bo = T(0), Bosol = T(0);
+  T Rref = T(0), Uref = T(0), Vref = T(0);
+  if (live) {
+    zw0 = zw[0];
+    zwN = zw[N];
+    Ustar = a.Ustar[c];
+    Bo = a.Bo[c];
+    Bosol = a.Bosol[c];
+
+    // ---- 1. top-down: pden and the interior bvf -------------------------
+    if constexpr (PREP) {
+      KeepColumn<T> sink{a.rho, a.pden, sP, c, bv};
+      T A, S_;
+      roms::eos_column<kAhead>(a.t, a.z_r, a.Hz, a.z_w, a.NT, N, a.P,
+                               static_cast<int>(c), e, sink, A, S_);
+      a.rhoA[c] = A;
+      a.rhoS[c] = S_;
+    } else {
+      const Col<T> bv_in = column(a.bvf_in);
+#pragma unroll 4
+      for (int k = N - 1; k >= 1; --k) bv.at(k - 1) = bv_in[k];
+    }
+
+    // ---- 2. bottom-up: the spline derivatives, one Thomas factorization
+    // and three right-hand sides.  Rows m = 0..N-2 (interfaces 1..N-1):
+    // lower Hz[m] (0 at m = 0), diagonal 2 (Hz[m] + Hz[m+1]), upper
+    // Hz[m+1] (0 at m = N-2); row m is eliminated when level m+1 arrives,
+    // the next kAhead levels in flight.  Slot m of dR/dU/dV holds
+    // interface m+1, slot m of cp row m (m <= N-3).
+    const int M = N - 1;
+    T hz0 = Hz[0], ur0 = ur[0], vr0 = vr[0], pd0 = pd[0];
+    T cpp = T(0), xR = T(0), xU = T(0), xV = T(0);
+    {
+      T rh[kAhead], ru[kAhead], rv[kAhead], rp[kAhead];
+      auto fetch = [&](int k, int u) {
+        rh[u] = Hz[k];
+        ru[u] = ur[k];
+        rv[u] = vr[k];
+        rp[u] = pd[k];
+      };
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        if (1 + u < N) fetch(1 + u, u);
+      for (int k0 = 1; k0 < N; k0 += kAhead) {
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          const int k = k0 + u;
+          if (k >= N) break;
+          const T hz1 = rh[u], ur1 = ru[u], vr1 = rv[u], pd1 = rp[u];
+          if (k + kAhead < N) fetch(k + kAhead, u);
+          const int m = k - 1;
+          const T up = m < M - 1 ? hz1 : T(0.0);
+          if (m == 0) {
+            const T inv0 = T(1.0) / mul_rn(T(2.0), hz0 + hz1);
+            cpp = mul_rn(up, inv0);
+            xR = mul_rn(mul_rn(T(6.0), pd1 - pd0), inv0);
+            xU = mul_rn(mul_rn(T(6.0), ur1 - ur0), inv0);
+            xV = mul_rn(mul_rn(T(6.0), vr1 - vr0), inv0);
+          } else {
+            const T denom = T(1.0) / (mul_rn(T(2.0), hz0 + hz1) -
+                                      mul_rn(hz0, cpp));
+            cpp = mul_rn(up, denom);
+            xR = mul_rn(mul_rn(T(6.0), pd1 - pd0) - mul_rn(hz0, xR), denom);
+            xU = mul_rn(mul_rn(T(6.0), ur1 - ur0) - mul_rn(hz0, xU), denom);
+            xV = mul_rn(mul_rn(T(6.0), vr1 - vr0) - mul_rn(hz0, xV), denom);
+          }
+          if (m < M - 1) cp.at(m) = cpp;
+          dR.at(m) = xR;
+          dU.at(m) = xU;
+          dV.at(m) = xV;
+          hz0 = hz1;
+          ur0 = ur1;
+          vr0 = vr1;
+          pd0 = pd1;
+        }
+      }
+    }
+    // hz0, ur0, vr0 and pd0 now hold level N-1, and xR, xU, xV the
+    // derivatives at interface N-1, final (the top row has no back
+    // substitution)
+    Rref = pd0 + mul_rn(hz0, mul_rn(T(C3), T(0.0)) + mul_rn(T(C6), xR));
+    Uref = ur0 + mul_rn(hz0, mul_rn(T(C3), T(0.0)) + mul_rn(T(C6), xU));
+    Vref = vr0 + mul_rn(hz0, mul_rn(T(C3), T(0.0)) + mul_rn(T(C6), xV));
+
+    // ---- 3. top-down: back substitution, the finished derivatives in
+    // place, and the interior mixing of each interface (lmd_vmix.F)
+    // written out; levels inside the boundary layer are written again in
+    // step 5
+    put(N, 0, T(p.akv_bak), T(p.akt_bak0), T(0.0), T(0.0));
+    T aR = xR, aU = xU, aV = xV;   // the derivatives at interface k
+    for (int k = N - 1; k >= 1; --k) {
+      if (k < N - 1) {
+        const T cpk = cp[k - 1];
+        aR = dR[k - 1] - mul_rn(cpk, aR);
+        aU = dU[k - 1] - mul_rn(cpk, aU);
+        aV = dV[k - 1] - mul_rn(cpk, aV);
+        dR.at(k - 1) = aR;
+        dU.at(k - 1) = aU;
+        dV.at(k - 1) = aV;
+      }
+      T akv, akt;
+      interior_mix(aU, aV, bv[k - 1], akv, akt);
+      put(k, 0, akv, akt, T(0.0), T(0.0));
+    }
+    put(0, 0, T(p.akv_bak), T(p.akt_bak0), T(0.0), T(0.0));
+  }
+  __syncwarp();
+
+  // ---- 4. the bulk Richardson number from the top down to the first
+  // crossing, FC[k+1] < Ric <= FC[k], the largest k + 1 >= 2 (FC[N] = 0).
+  // The warp shares out its columns' levels: in each round every column
+  // still scanning takes 32 / (such columns) lanes, one level each, its
+  // next levels down; the topmost crossing among them ends its scan.
+  // Each level's shortwave fraction takes the slot of its Thomas cp,
+  // which no later step reads (the top level has none).
+  bool scanning = live;
+  int pos = N - 1;             // the next level whose FC is formed
+  int kfc = N;                 // the lowest level whose FC was formed
+  T FCup = T(0), zwup = zwN;   // FC and z_w of the level above pos
+  bool found = false;
+  T FCk = T(0), FCkm1 = T(0), zwk = T(0), zwkm1 = T(0);
+  for (;;) {
+    const unsigned act = __ballot_sync(kFull, scanning);
+    if (!act) break;
+    const int nact = __popc(act);
+    const int chunk = 32 / nact;
+    const int r = lane / chunk, j = lane - r * chunk;
+    const int o = r < nact ? static_cast<int>(__fns(act, 0, r + 1)) : lane;
+    const int k = __shfl_sync(kFull, pos, o) - j;
+    const bool valid = r < nact && k >= 1;
+    const T oRref = __shfl_sync(kFull, Rref, o);
+    const T oUref = __shfl_sync(kFull, Uref, o);
+    const T oVref = __shfl_sync(kFull, Vref, o);
+    const T oUstar = __shfl_sync(kFull, Ustar, o);
+    const T oBo = __shfl_sync(kFull, Bo, o);
+    const T oBosol = __shfl_sync(kFull, Bosol, o);
+    const T ozwN = __shfl_sync(kFull, zwN, o);
+    const T oFCup = __shfl_sync(kFull, FCup, o);
+    const T ozwup = __shfl_sync(kFull, zwup, o);
+    T FC = T(0), zwl = T(0);
+    if (valid) {
+      const int dc = o - lane;
+      const Col<T> odR = dR.lane(dc), odU = dU.lane(dc), odV = dV.lane(dc);
+      const bool top = k == N - 1;
+      zwl = zw.lane(dc)[k];
+      T sw;
+      FC = bulk_richardson(
+          ozwN - zwl, pd.lane(dc)[k], Hz.lane(dc)[k], ur.lane(dc)[k],
+          vr.lane(dc)[k], odR[k - 1], top ? T(0) : odR[k], odU[k - 1],
+          top ? T(0) : odU[k], odV[k - 1], top ? T(0) : odV[k],
+          bv.lane(dc)[k - 1], oRref, oUref, oVref, oUstar, oBo, oBosol, p,
+          sw);
+      if (!top) cp.lane(dc).at(k - 1) = sw;
+    }
+    // FC and z_w of the level above: the previous lane's, or the column's
+    // carry for the first level of its lanes
+    T FCa = __shfl_up_sync(kFull, FC, 1), zwa = __shfl_up_sync(kFull, zwl, 1);
+    if (j == 0) {
+      FCa = oFCup;
+      zwa = ozwup;
+    }
+    const unsigned cross =
+        __ballot_sync(kFull, valid && FCa < T(RIC) && FC >= T(RIC));
+    const unsigned done = __ballot_sync(kFull, valid);
+    // each scanning column reads its lanes: the topmost crossing, else the
+    // last level formed
+    int hit = lane, last = lane, formed = 0;
+    bool crossed = false;
+    if (scanning) {
+      const int rank = __popc(act & ((1u << lane) - 1));
+      const unsigned mine =
+          (chunk == 32 ? kFull : (1u << chunk) - 1) << (rank * chunk);
+      formed = __popc(done & mine);
+      last = 31 - __clz(done & mine);
+      crossed = (cross & mine) != 0;
+      if (crossed) hit = __ffs(cross & mine) - 1;
+    }
+    const T hFCa = __shfl_sync(kFull, FCa, hit);
+    const T hFC = __shfl_sync(kFull, FC, hit);
+    const T hzwa = __shfl_sync(kFull, zwa, hit);
+    const T hzwl = __shfl_sync(kFull, zwl, hit);
+    const T lFC = __shfl_sync(kFull, FC, last);
+    const T lzwl = __shfl_sync(kFull, zwl, last);
+    if (scanning) {
+      kfc = pos - formed + 1;
+      if (crossed) {
+        found = true;
+        FCk = hFCa;
+        FCkm1 = hFC;
+        zwk = hzwa;
+        zwkm1 = hzwl;
+        scanning = false;
+      } else {
+        FCup = lFC;
+        zwup = lzwl;
+        pos -= formed;
+        scanning = pos >= 1;
+      }
+    }
+  }
+
+  // the boundary-layer depth (with no crossing FC was formed down to
+  // level 1 and zwup is z_w[1]), the Ekman / Monin-Obukhov caps under
+  // stable forcing, ksbl, the boundary-layer scales and the matching
+  BoundaryLayer<T> bl{Ustar, Bo, Bosol, zwN, T(0), T(0), T(0), T(0), T(0),
+                      T(0), T(0), T(0), T(0)};
+  int ksbl = N;
+  if (live) {
+    T hsbl = found ? (mul_rn(FCkm1 - T(RIC), zwk) +
+                      mul_rn(T(RIC) - FCk, zwkm1)) /
+                         (FCkm1 - FCk + T(SMALL))
+                   : zwup;
+    {
+      const T Bfsfc = Bo + mul_rn(Bosol, T(1.0) - swdk(zwN - hsbl, p));
+      const T hekman = mul_rn(T(CEKMAN), Ustar) / mx(a.absf[c], T(EPS));
+      const T hmonob =
+          mul_rn(T(CMONOB), mul_rn(mul_rn(Ustar, Ustar), Ustar)) /
+          mx(mul_rn(vonKar, Bfsfc), T(EPS));
+      const T cap = zwN - mn(mn(hekman, hmonob), zwN - hsbl);
+      if (Ustar > T(0.0) && Bfsfc > T(0.0)) hsbl = cap;
+      hsbl = mn(mx(hsbl, zw0), zwN);
+    }
+    a.hsbl[c] = hsbl;
+    ksbl = 0;
+#pragma unroll 4
+    for (int k = 0; k < N; ++k) ksbl += zw[k] < hsbl ? 1 : 0;
+    ksbl = ksbl > 1 ? ksbl : 1;
+
+    const T Bfsfc = Bo + mul_rn(Bosol, T(1.0) - swdk(zwN - hsbl, p));
+    bl.zbl = zwN - hsbl;
+    bl.sl_dpth = mul_rn(T(EPSILON), bl.zbl);
+    const T sig_bl = Bfsfc > T(0.0) ? bl.zbl : mul_rn(T(EPSILON), bl.zbl);
+    T wm_bl, ws_bl;
+    wscale(Ustar, mul_rn(mul_rn(vonKar, sig_bl), Bfsfc), vonKar, wm_bl,
+           ws_bl);
+    const T U2 = mul_rn(Ustar, Ustar);
+    const T f1 = mul_rn(mul_rn(T(5.0), mx(Bfsfc, T(0.0))), vonKar) /
+                 (mul_rn(U2, U2) + T(EPS));
+    const T zw_ks = zw[ksbl], zw_ksm1 = zw[ksbl - 1];
+    const T cffk = T(1.0) / (zw_ks - zw_ksm1);
+    const T cff_dn = mul_rn(cffk, hsbl - zw_ksm1);
+    const T cff_up = mul_rn(cffk, zw_ks - hsbl);
+    // the interior mixing at interfaces ksbl and ksbl-1, formed again
+    T Kv_at = T(p.akv_bak), Kt_at = T(p.akt_bak0);
+    T Kv_at1 = T(p.akv_bak), Kt_at1 = T(p.akt_bak0);
+    if (ksbl < N)
+      interior_mix(dU[ksbl - 1], dV[ksbl - 1], bv[ksbl - 1], Kv_at, Kt_at);
+    if (ksbl > 1)
+      interior_mix(dU[ksbl - 2], dV[ksbl - 2], bv[ksbl - 2], Kv_at1, Kt_at1);
+    const T Kv_bl = mul_rn(cff_dn, Kv_at) + mul_rn(cff_up, Kv_at1);
+    const T dKv_bl = mul_rn(cffk, Kv_at - Kv_at1);
+    bl.Kv1 = Kv_bl / (mul_rn(bl.zbl, wm_bl) + T(EPS));
+    bl.dKv1 =
+        mn(-dKv_bl / (wm_bl + T(EPS)) - mul_rn(Kv_bl, f1), T(0.0));
+    const T Kt_bl = mul_rn(cff_dn, Kt_at) + mul_rn(cff_up, Kt_at1);
+    const T dKt_bl = mul_rn(cffk, Kt_at - Kt_at1);
+    bl.Kt1 = Kt_bl / (mul_rn(bl.zbl, ws_bl) + T(EPS));
+    bl.dKt1 =
+        mn(-dKt_bl / (ws_bl + T(EPS)) - mul_rn(Kt_bl, f1), T(0.0));
+    bl.flxT = a.flxT[c];
+    bl.flxS = a.flxS[c];
+    bl.srflx = a.srflx[c];
+  }
+  __syncwarp();
+
+  // ---- 5. the levels inside the boundary layer, k = ksbl+1 .. N-1: the
+  // warp shares them out, one (column, level) a lane, in rounds of 32
+  const int nbl = live && ksbl < N - 1 ? N - 1 - ksbl : 0;
+  int incl = nbl;   // inclusive prefix sum over the warp's lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int total = __shfl_sync(kFull, incl, 31);
+  for (int base = 0; base < total; base += 32) {
+    const int t = base + lane;
+    // the column of item t: the number of lanes whose prefix is <= t
+    int o = 0;
+#pragma unroll
+    for (int step = 16; step >= 1; step >>= 1) {
+      const int v = __shfl_sync(kFull, incl, o + step - 1);
+      if (v <= t) o += step;
+    }
+    o = t < total ? o : lane;
+    const int first = __shfl_sync(kFull, incl - nbl, o);
+    const int oksbl = __shfl_sync(kFull, ksbl, o);
+    const int okfc = __shfl_sync(kFull, kfc, o);
+    const BoundaryLayer<T> ob = shfl_layer(bl, o);
+    if (t < total) {
+      const int dc = o - lane;
+      const int k = oksbl + 1 + (t - first);
+      const T depth = ob.zwN - zw.lane(dc)[k];
+      // the shortwave fraction formed with FC, else formed again
+      const T sw = k >= okfc && k < N - 1 ? cp.lane(dc)[k - 1]
+                                           : swdk(depth, p);
+      T akv, akt, ghT, ghS;
+      boundary_level(ob, depth, sw, p, akv, akt, ghT, ghS);
+      put(k, dc, akv, akt, ghT, ghS);
+    }
+  }
+}
+template <typename T, bool PREP>
+int launch(const KppArgs<T>& a, const EosParams& e, const KppParams& p,
+           int threads, void* stream) {
+  const size_t smem = sizeof(T) *
+                      static_cast<size_t>(column_values(a.N)) *
+                      (threads + 1);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kpp_kernel<T, PREP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // this launch's error, not the next one's
+    return static_cast<int>(err);
+  }
+  const int blocks = (a.P + threads - 1) / threads;
+  kpp_kernel<T, PREP><<<blocks, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(a, e, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 #define ROMS_COLUMN_SCALARS                                                 \
-  int NT, int N, int P, int linear, int use_s, double R0, double T0,        \
-      double S0, double R0Tcoef, double R0Scoef, double bvf_c,              \
-      double neg_g, double o_rho0, double two_o_rho0, double akv_bak,       \
-      double akt_bak0, double r1, double o_mu1, double o_mu2,               \
-      double neg_gorho0, double Vtc, double Cg, double vonKar, void* stream
+  int NT, int N, int P, int nat, int threads, int linear, int use_s,       \
+      double R0, double T0, double S0, double R0Tcoef,                      \
+      double R0Scoef, double bvf_c, double neg_g, double o_rho0,            \
+      double two_o_rho0, double akv_bak, double akt_bak0, double r1,        \
+      double o_mu1, double o_mu2, double neg_gorho0, double Vtc, double Cg, \
+      double vonKar, void* stream
 
 #define ROMS_COLUMN_PARAMS                                                  \
   EosParams e{linear, use_s, R0, T0, S0, R0Tcoef, R0Scoef,                  \
@@ -409,8 +671,9 @@ int launch(const KppArgs<T>& a, int NT, int N, int P, const EosParams& e,
     KppArgs<T> a{nullptr, nullptr, C(u_r), C(v_r), C(pden), C(bvf),         \
                  C(Hz), C(z_w), C(Ustar), C(Bo), C(Bosol), C(absf),         \
                  C(flxT), C(flxS), C(srflx), nullptr, nullptr, nullptr,     \
-                 nullptr, (T*)Akv, (T*)Akt, (T*)ghT, (T*)ghS, (T*)hsbl};    \
-    return launch<T, false>(a, NT, N, P, e, p, stream);                     \
+                 nullptr, (T*)Akv, (T*)Akt, (T*)ghT, (T*)ghS, (T*)hsbl,     \
+                 NT, N, P, nat};                                            \
+    return launch<T, false>(a, e, p, threads, stream);                      \
   }
 
 #define ROMS_PREP_ENTRY(NAME, T)                                             \
@@ -426,8 +689,9 @@ int launch(const KppArgs<T>& a, int NT, int N, int P, const EosParams& e,
     KppArgs<T> a{C(t), C(z_r), C(u_r), C(v_r), nullptr, nullptr, C(Hz),     \
                  C(z_w), C(Ustar), C(Bo), C(Bosol), C(absf), C(flxT),       \
                  C(flxS), C(srflx), (T*)rho, (T*)pden, (T*)rhoA,            \
-                 (T*)rhoS, (T*)Akv, (T*)Akt, (T*)ghT, (T*)ghS, (T*)hsbl};   \
-    return launch<T, true>(a, NT, N, P, e, p, stream);                      \
+                 (T*)rhoS, (T*)Akv, (T*)Akt, (T*)ghT, (T*)ghS, (T*)hsbl,    \
+                 NT, N, P, nat};                                            \
+    return launch<T, true>(a, e, p, threads, stream);                       \
   }
 
 ROMS_KPP_ENTRY(roms_kpp_f32, float)

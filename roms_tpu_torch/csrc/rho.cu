@@ -19,6 +19,11 @@ namespace {
 
 using roms::EosParams;
 
+// levels eos_column keeps in flight ahead of the one it works on: none,
+// each level's inputs are loaded as it comes (at full occupancy a ring
+// of registers cost kernel 1 more in occupancy than it hid)
+constexpr int kAhead = 0;
+
 // eos_column sink that stores every level and interface
 template <typename T>
 struct StoreAll {
@@ -49,7 +54,7 @@ __global__ void rho_kernel(const T* __restrict__ t,
   if (c >= P) return;
   StoreAll<T> sink{rho, pden, bvf, P, c};
   T A, S;
-  roms::eos_column(t, z_r, Hz, z_w, NT, N, P, c, p, sink, A, S);
+  roms::eos_column<kAhead>(t, z_r, Hz, z_w, NT, N, P, c, p, sink, A, S);
   bvf[c] = T(0);
   bvf[static_cast<size_t>(N) * P + c] = T(0);
   rhoA[c] = A;

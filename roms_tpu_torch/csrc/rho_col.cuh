@@ -3,7 +3,10 @@
 // frequency, shared by kernel 1 (rho.cu) and the prep mode of kernel 15
 // (kpp.cu), so both evaluate one EOS with one rounding.
 //
-// The column is walked top-down once: the rhoA/rhoS sums of
+// The column is walked top-down once, with the next A levels' inputs in
+// flight in a ring of registers (A = 0: each level's loaded as it comes;
+// kernel 1 runs at full occupancy and keeps its registers, the prep
+// kernel at low occupancy and prefetches): the rhoA/rhoS sums of
 // rho_eos.F:731-741 run in registers in the reference's top-down order,
 // and the level above is kept in registers for the interface bvf.  Every
 // product that feeds an add or subtract is mul_rn, which nvcc never
@@ -76,11 +79,11 @@ __device__ __forceinline__ void jm95(T t0, T t1, bool has_s, T& den1,
   b2 = b2 + mul_rn(S, T(H00) + mul_rn(Tt, T(H01) + mul_rn(Tt, T(H02))));
 }
 
-// One column c of an (N, P) layout: sink.level(k, rho, pden) for each
-// level k (top-down) and sink.interface(k, bvf) for each interior
-// interface k = 1..N-1; returns (rhoA, rhoS).  The end interfaces' bvf
-// are zero.
-template <typename T, typename Sink>
+// One column c of an (N, P) layout, A levels in flight: sink.level(k,
+// rho, pden) for each level k (top-down) and sink.interface(k, bvf) for
+// each interior interface k = 1..N-1; returns (rhoA, rhoS).  The end
+// interfaces' bvf are zero.
+template <int A, typename T, typename Sink>
 __device__ __forceinline__ void eos_column(const T* __restrict__ t,
                                            const T* __restrict__ z_r,
                                            const T* __restrict__ Hz,
@@ -90,14 +93,10 @@ __device__ __forceinline__ void eos_column(const T* __restrict__ t,
                                            T& rhoA, T& rhoS) {
   const size_t tracer = static_cast<size_t>(N) * P;
   T sumA = T(0), sumS = T(0);
-  T up_pden = T(0), up_zr = T(0);
+  T up_pden = T(0), up_zr = T(0), up_zw = T(0);
   T up_den1 = T(0), up_b0 = T(0), up_b1 = T(0), up_b2 = T(0);
-  for (int k = N - 1; k >= 0; --k) {
-    const size_t o = static_cast<size_t>(k) * P + c;
-    const T t0 = t[o];
-    const T t1 = NT > 1 ? t[tracer + o] : T(0);
-    const T zr = z_r[o];
-    const T hz = Hz[o];
+  // level k from its inputs: rho and pden, the interface above, the sums
+  auto level = [&](int k, T t0, T t1, T zr, T hz, T zwk) {
     T r, pd, den1 = T(0), b0 = T(0), b1 = T(0), b2 = T(0);
     if (p.linear) {
       r = T(p.R0) - mul_rn(T(p.R0Tcoef), t0 - T(p.T0));
@@ -117,7 +116,7 @@ __device__ __forceinline__ void eos_column(const T* __restrict__ t,
       if (p.linear) {
         b = T(p.bvf_c) * (up_pden - pd) / (up_zr - zr);
       } else {
-        const T zw = z_w[static_cast<size_t>(k + 1) * P + c];
+        const T zw = up_zw;
         const T bulk_up = up_b0 - mul_rn(zw, up_b1 - mul_rn(up_b2, zw));
         const T bulk_dn = b0 - mul_rn(zw, b1 - mul_rn(b2, zw));
         const T den_up = up_den1 * bulk_up / (bulk_up + mul_rn(T(0.1), zw));
@@ -138,10 +137,41 @@ __device__ __forceinline__ void eos_column(const T* __restrict__ t,
     }
     up_pden = pd;
     up_zr = zr;
+    up_zw = zwk;
     up_den1 = den1;
     up_b0 = b0;
     up_b1 = b1;
     up_b2 = b2;
+  };
+  auto at = [&](const T* f, int k) {
+    return f[static_cast<size_t>(k) * P + c];
+  };
+  if constexpr (A == 0) {
+    for (int k = N - 1; k >= 0; --k)
+      level(k, at(t, k), NT > 1 ? at(t + tracer, k) : T(0), at(z_r, k),
+            at(Hz, k), p.linear ? T(0) : at(z_w, k));
+  } else {
+    T r0[A], r1[A], rz[A], rh[A], rw[A];
+    auto fetch = [&](int k, int u) {
+      r0[u] = at(t, k);
+      r1[u] = NT > 1 ? at(t + tracer, k) : T(0);
+      rz[u] = at(z_r, k);
+      rh[u] = at(Hz, k);
+      rw[u] = p.linear ? T(0) : at(z_w, k);   // the JM95 bvf's interfaces
+    };
+#pragma unroll
+    for (int u = 0; u < A; ++u)
+      if (N - 1 - u >= 0) fetch(N - 1 - u, u);
+    for (int k0 = N - 1; k0 >= 0; k0 -= A) {
+#pragma unroll
+      for (int u = 0; u < A; ++u) {
+        const int k = k0 - u;
+        if (k < 0) break;
+        level(k, r0[u], r1[u], rz[u], rh[u], rw[u]);
+        // refill the slot once its level is done
+        if (k - A >= 0) fetch(k - A, u);
+      }
+    }
   }
   const T D_inv = T(1.0) / (z_w[static_cast<size_t>(N) * P + c] - z_w[c]);
   rhoA = T(p.o_rho0) * D_inv * sumA;

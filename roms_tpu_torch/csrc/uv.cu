@@ -76,7 +76,8 @@ __device__ __forceinline__ T face(const T* f, size_t o, size_t c, size_t cn) {
 // averages at (j, i-1) for u and (j-1, i) for v.
 //
 // The spline solve of pallas_uv.py _spline_dq (ops/tridiag.py
-// spline_flux_solve over tridiag_plain) as one streaming sweep:
+// spline_flux_solve over tridiag_plain) as one streaming sweep (vdiff.cu
+// runs the same sweep on the tracers):
 //   forward, k = 0 .. N-1: level k's face thickness hz, AB3 seed q and
 //     face viscosity AK(k+1) are formed as they arrive (the raw values of
 //     the next kAhead levels in flight), and interface k's Thomas row is

@@ -1,4 +1,4 @@
-// Kernel 8: harmonic momentum mixing along s-surfaces (uv3dmix2_s.h:
+// Kernel 10: harmonic momentum mixing along s-surfaces (uv3dmix2_s.h:
 // 120-222): the rho-point and psi-point stresses, their divergence, the
 // dt-weighted update of the corrector seeds u_part/v_part, and the
 // vertical sum of the divergence into the 2D forcing rufrc/rvfrc.

@@ -1,4 +1,4 @@
-"""Kernel 6: horizontal mass fluxes fused with the vertical mass flux
+"""Kernels 7 and 8: horizontal mass fluxes fused with the vertical mass flux
 (csrc/flux.cu), entry points `flux_omega` and `omega`.
 
 Replaces roms_tpu/ops/pallas_flux.py `flux_omega_pallas` and

@@ -297,44 +297,81 @@ def kpp(cfg, u_r, v_r, pden, bvf, Hz, z_w, Ustar, Bo, Bosol, absf, flxT,
                          Bosol, absf, flxT, flxS, srflx)
     cols = [u_r, v_r, pden, bvf, Hz, z_w]
     planes = [Ustar, Bo, Bosol, absf, flxT, flxS, srflx]
-    return launch_column(cfg, "kpp", cols, planes)
+    return launch_column(cfg, "kpp", cols, planes)[0]
+
+
+# threads a block of the column kernel by element size (csrc/kpp.cu; the
+# float32 choice timed against other sizes by `chip_smoke.py --profile`,
+# PERF.md)
+PREP_THREADS = {4: 64, 8: 32}
+
+
+def column_values(N: int) -> int:
+    """Values a thread of the column kernel keeps in shared memory: the
+    interior bvf (N-1), the Thomas cp (N-2) and the three spline
+    derivatives (N-1 each)."""
+    return 5 * N - 6
+
+
+def prep_launch_shape(N: int, Mj: int, Li: int, itemsize: int):
+    """The column kernel's (threads, blocks, dynamic shared memory bytes),
+    one thread a column, in either mode; a thread's values lie B + 1
+    apart (no bank conflict when a lane reads another's levels)."""
+    B = PREP_THREADS[itemsize]
+    return B, -(-(Mj * Li) // B), itemsize * column_values(N) * (B + 1)
 
 
 def launch_column(cfg, name, cols, planes, t=None, z_r=None):
     """Launch csrc/kpp.cu in KPP mode (`t` is None; cols = u_r, v_r,
     pden, bvf, Hz, z_w) or in prep mode (cols = u_r, v_r, Hz, z_w, with
-    t and z_r).  Returns the KPP outputs (Akv, Akt_profile, ghT, ghS,
-    hsbl), preceded in prep mode by (rho, pden, rhoA, rhoS)."""
+    t and z_r).  Returns (outputs, Akt, ghats): the outputs (Akv,
+    Akt_profile, ghT, ghS, hsbl), preceded in prep mode by (rho, pden,
+    rhoA, rhoS); in prep mode the kernel writes Akt over the NAT active
+    tracers and ghats as `stack_tracers` stacks them, and Akt_profile,
+    ghT and ghS are views of them (in KPP mode Akt and ghats are None).
+    No PyTorch operation runs besides the allocations."""
     prep = t is not None
     ins, sfx, stream = _lib.prepare(
         name, cols + planes + ([t, z_r] if prep else []))
     N, Mj, Li = ins[0].shape
-    _lib.require_depth(name, N)
     levels = (N, N, N, N + 1) if prep else (N, N, N, N + 1, N, N + 1)
     want = [(n, Mj, Li) for n in levels] + [(Mj, Li)] * len(planes)
     NT = ins[-2].shape[0] if prep else 0
     if prep:
         want += [(NT, N, Mj, Li), (N, Mj, Li)]
-    if [tuple(x.shape) for x in ins] != want:
+    if N < 2 or [tuple(x.shape) for x in ins] != want:
         raise ValueError(f"{name}: inconsistent shapes")
+    threads, _, smem = prep_launch_shape(N, Mj, Li, ins[0].element_size())
+    if smem > _lib.SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: {N} levels need {smem} B of shared "
+                         "memory a block, more than the card's 227 KB")
+    z_w = ins[3] if prep else ins[5]
+    Akv, hsbl = torch.empty_like(z_w), torch.empty_like(z_w[0])
     if prep:
         u_r, v_r, Hz, z_w, *pl = ins[:11]
         t, z_r = ins[11:]
         rho_out = [torch.empty_like(u_r), torch.empty_like(u_r),
                    torch.empty_like(u_r[0]), torch.empty_like(u_r[0])]
         ins = [t, z_r, Hz, z_w, u_r, v_r] + pl
+        nat = cfg.NAT
+        Akt = torch.empty((nat, N + 1, Mj, Li), dtype=z_w.dtype,
+                          device=z_w.device)
+        ghats = torch.empty((2 if nat > 1 else 1, N + 1, Mj, Li),
+                            dtype=z_w.dtype, device=z_w.device)
+        ghT = ghats[0]
+        ghS = ghats[1] if nat > 1 else torch.empty_like(z_w)
+        Akt_prof = Akt[0]
     else:
-        z_w = ins[5]
-        rho_out = []
-    kout = [torch.empty_like(z_w) for _ in range(4)] + [
-        torch.empty_like(z_w[0])]
-    args = ins + rho_out + kout
+        rho_out, nat, Akt, ghats = [], 1, None, None
+        Akt_prof, ghT, ghS = (torch.empty_like(z_w) for _ in range(3))
+    kout = [Akv, Akt_prof, ghT, ghS, hsbl]
     e = cfg.eos
     pk = kpp_params(cfg)
     P, I, D = _lib.P, _lib.I, _lib.D
+    args = ins + rho_out + kout
     fn = _lib.func(f"roms_{name}_{sfx}",
-                   [P] * len(args) + [I] * 5 + [D] * 18 + [P])
-    rc = fn(*[_lib.ptr(x) for x in args], NT, N, Mj * Li,
+                   [P] * len(args) + [I] * 7 + [D] * 18 + [P])
+    rc = fn(*[_lib.ptr(x) for x in args], NT, N, Mj * Li, nat, threads,
             int(bool(e.linear)), int(NT > 1 and e.Scoef != 0.0),
             e.R0, e.T0, e.S0, e.R0 * e.Tcoef, e.R0 * e.Scoef,
             -(constants.g / cfg.rho0), -constants.g, 1.0 / cfg.rho0,
@@ -344,7 +381,7 @@ def launch_column(cfg, name, cols, planes, t=None, z_r=None):
             constants.vonKar, P(stream))
     _lib.launches[name] += 1
     _lib.check(rc, name)
-    return (*rho_out, *kout)
+    return (*rho_out, *kout), Akt, ghats
 
 
 def lmd_kpp_fused(cfg, grid, t, u, v, pden, bvf, Hz, z_r, z_w, forcing,

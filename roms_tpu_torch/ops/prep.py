@@ -4,9 +4,11 @@
 Replaces roms_tpu/ops/pallas_prep.py `prep_pallas` and its wrapper
 `prep_fused`.  The kernel runs the column EOS of kernel 1
 (csrc/rho_col.cuh) and then the KPP column of kernel 14 on the density
-and stratification it keeps in the thread: pden is written once as an
-output, bvf never leaves the thread.  The plain version is kernel 1's
-plain version followed by kernel 14's (`rho_eos_plain`, `kpp_block`).
+and stratification it has just formed: pden is written once as an output
+and read back from L2, bvf stays in the thread's shared-memory slots.
+It writes Akt and ghats stacked over the active tracers, as the step
+takes them.  The plain version is kernel 1's plain version followed by
+kernel 14's (`rho_eos_plain`, `kpp_block`).
 
 The bulk fluxes sit between the EOS and KPP in dataflow (they need the
 surface density, KPP needs the fluxes), so the step computes the top
@@ -49,26 +51,35 @@ def prep_plain(cfg, t, z_r, Hz, z_w, u_r, v_r, Ustar, Bo, Bosol, absf,
 
 def prep(cfg, t, z_r, Hz, z_w, u_r, v_r, Ustar, Bo, Bosol, absf, flxT,
          flxS, srflx):
-    """Wrapper: plain version on CPU tensors, kernel on CUDA tensors."""
+    """Wrapper: plain version on CPU tensors, kernel on CUDA tensors
+    (Akt_profile, ghT and ghS are then views of the stacked outputs)."""
     if t.device.type == "cpu":
         return prep_plain(cfg, t, z_r, Hz, z_w, u_r, v_r, Ustar, Bo, Bosol,
                           absf, flxT, flxS, srflx)
-    return kpp_op.launch_column(
-        cfg, "prep", [u_r, v_r, Hz, z_w],
-        [Ustar, Bo, Bosol, absf, flxT, flxS, srflx], t=t, z_r=z_r)
+    return _launch(cfg, t, z_r, Hz, z_w, u_r, v_r, Ustar, Bo, Bosol, absf,
+                   flxT, flxS, srflx)[0]
+
+
+def _launch(cfg, t, z_r, Hz, z_w, u_r, v_r, *planes):
+    return kpp_op.launch_column(cfg, "prep", [u_r, v_r, Hz, z_w],
+                                list(planes), t=t, z_r=z_r)
 
 
 def prep_fused(cfg, grid, t, u, v, Hz, z_r, z_w, forcing,
                use_kernels: bool = True):
     """rho_eos + LMD-KPP of the BENCHMARK physics (no BKPP/DDMIX):
     returns (rho, pden, rhoA, rhoS, Akv, Akt, ghats, hsbl), Akt and
-    ghats stacked over the NAT active tracers.  The 2-D inputs are
-    prepared as for kernel 14 (pallas_prep.py:132-169)."""
+    ghats stacked over the NAT active tracers (by the kernel itself on
+    CUDA tensors).  The 2-D inputs are prepared as for kernel 14
+    (pallas_prep.py:132-169)."""
     (u_r, v_r, Ustar, Bo, Bosol, absf, flxT, flxS,
      srflx) = kpp_op.surface_forcing(cfg, grid, t, u, v, forcing)
-    fn = prep if use_kernels else prep_plain
-    (rho, pden, rhoA, rhoS, Akv, Akt_prof, ghT, ghS, hsbl) = fn(
-        cfg, t, z_r, Hz, z_w, u_r, v_r, Ustar, Bo, Bosol, absf, flxT, flxS,
-        srflx)
+    args = (cfg, t, z_r, Hz, z_w, u_r, v_r, Ustar, Bo, Bosol, absf, flxT,
+            flxS, srflx)
+    if use_kernels and t.device.type != "cpu":
+        outs, Akt, ghats = _launch(*args)
+        rho, pden, rhoA, rhoS, Akv, *_, hsbl = outs
+        return rho, pden, rhoA, rhoS, Akv, Akt, ghats, hsbl
+    rho, pden, rhoA, rhoS, Akv, Akt_prof, ghT, ghS, hsbl = prep_plain(*args)
     return (rho, pden, rhoA, rhoS, Akv,
             *kpp_op.stack_tracers(cfg, Akt_prof, ghT, ghS), hsbl)

@@ -1,5 +1,5 @@
 """Kernel 17: the batched vertical tridiagonal solve (csrc/tridiag.cu),
-and the spline flux solve behind kernels 4 and 5.
+and the spline flux solve behind kernels 4 and 6.
 
 Replaces roms_tpu/ops/pallas_tridiag.py `tridiag_solve_pallas`, which
 roms_tpu's dispatcher (roms_tpu/ops/tridiag.py:32-57) runs for every
@@ -10,9 +10,9 @@ with k axis 0.
 `tridiag_plain` is the plain PyTorch Thomas sweep over whole horizontal
 planes, with the Pallas kernel's association (_thomas_kernel,
 pallas_tridiag.py:33-57).  `spline_flux_solve` stays on it: it is the
-plain version of kernels 4 and 5 (ops/uv.py, ops/vdiff.py; their CUDA
-sweep is csrc/spline_dq.cuh), so `Model(use_kernels=False)` never
-launches kernel 17.
+plain version of kernels 4 and 6 (ops/uv.py, ops/vdiff.py; their CUDA
+sweeps are in csrc/uv.cu and csrc/vdiff.cu), so
+`Model(use_kernels=False)` never launches kernel 17.
 """
 
 from __future__ import annotations

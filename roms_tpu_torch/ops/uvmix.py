@@ -1,4 +1,4 @@
-"""Kernel 8: harmonic momentum mixing along s-surfaces (csrc/uvmix.cu).
+"""Kernel 10: harmonic momentum mixing along s-surfaces (csrc/uvmix.cu).
 
 Replaces roms_tpu/ops/pallas_uvmix.py `uv3dmix2_s_pallas`; the plain
 version is core/hmix.py `uv3dmix2_s`.  The kernel and its plain version

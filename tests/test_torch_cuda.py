@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
 from roms_tpu_torch.ops import (  # noqa: E402
-    _lib, hmix, prsgrd, rhs3d, step2d, tadv, uv)
+    _lib, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, vdiff)
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
@@ -357,4 +357,109 @@ def test_redesigned_kernels_raise_over_shared_memory(monkeypatch):
         assert mod.launch_shape(*shape)[4] > _lib.SMEM_PER_BLOCK
         with pytest.raises(ValueError, match=name):
             call(*args)
+    assert _lib.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("closed", [False, True])
+@pytest.mark.parametrize("app,shape", cs.COLUMN_SHAPES)
+def test_prep_and_kpp_at_ragged_and_minimal_shapes(app, shape, closed,
+                                                   dtype):
+    """Kernels 15 and 14 (the column sweep with its state in shared
+    memory) against their plain versions on ragged grids and down to N =
+    2, closed and EW-periodic, a statically unstable column every other
+    one: no boundary-layer column moved, both forcing regimes and columns
+    with and without a crossing; one launch a call."""
+    _need_card()
+    env = cs.setup(torch, *shape, dtype, app=app)
+    for name, args in cs.column_cases(torch, env).items():
+        if closed:
+            args = (_closed(args[0]),) + args[1:]
+        before = _lib.launches[name]
+        rel, _ = cs.compare(torch, name, args, dtype)
+        assert rel <= cs.TOL[dtype], (name, app, shape, closed, rel)
+        assert _lib.launches[name] == before + 1
+        failures = len(cs.FAILURES)
+        cs.hsbl_check(torch, name, args, dtype, label="test", regimes=True)
+        assert cs.FAILURES[failures:] == []
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("closed", [False, True])
+@pytest.mark.parametrize("app,shape", cs.COLUMN_SHAPES)
+def test_spline_vdiff_at_ragged_and_minimal_shapes(app, shape, closed,
+                                                   dtype):
+    """Kernel 6 (uv_solve's column sweep, one thread a tracer and column)
+    bitwise equal to its plain version at one, two and five tracers with
+    one or two Akt profiles, on ragged grids and down to N = 2, closed and
+    EW-periodic; one launch a call."""
+    _need_card()
+    env = cs.setup(torch, *shape, dtype, app=app)
+    args, _ = cs.entry_inputs(torch, "spline_vdiff", *env, 5)
+    if closed:
+        args = (_closed(args[0]),) + args[1:]
+    for NT, NAT in cs.VDIFF_TRACERS:
+        before = _lib.launches["spline_vdiff"]
+        rel, _ = cs.compare(torch, "spline_vdiff",
+                            cs.vdiff_tracers(torch, args, NT, NAT), dtype)
+        assert rel == 0.0, (app, shape, closed, NT, NAT, rel)
+        assert _lib.launches["spline_vdiff"] == before + 1
+
+
+def test_prep_fused_writes_the_stacked_outputs():
+    """On the card prep_fused's Akt and ghats come from the kernel stacked
+    over the active tracers, equal to the plain route's torch.stack, and
+    the prep wrapper is one device kernel (no PyTorch operation)."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    model, s = cs.make_model(torch, "benchmark", 20, 9, 6, "float64", True,
+                             150.0, True)
+    cfg, grid = model.cfg, model.grid
+    from roms_tpu_torch.ops.prep import surface_rho
+    forcing = model.forcing_fn(s.time, s.t[0][-1], s.t[1][-1],
+                               surface_rho(cfg, s.t, s.z_r))
+    call = (cfg, grid, s.t, s.u, s.v, s.Hz, s.z_r, s.z_w, forcing)
+    got = prep.prep_fused(*call)
+    ref = prep.prep_fused(*call, use_kernels=False)
+    assert got[5].shape == (cfg.NAT, cfg.N + 1) + cfg.shape2d
+    assert got[6].shape == ref[6].shape
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-12 * float(r.abs().max())
+    env = cs.setup(torch, 37, 19, 4, "float32", app="benchmark")
+    args, _ = cs.entry_inputs(torch, "prep", *env, 5)
+    prep.prep(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prep.prep(*args)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.count]
+    assert len(rows) == 1 and "kpp_kernel<" in rows[0].key, [
+        e.key for e in rows]
+
+
+def test_column_sweeps_raise_over_shared_memory():
+    """float64 launches of the column sweeps whose state would exceed a
+    block's 227 KB raise before launching, at the shallowest such depth."""
+    _need_card()
+    before = dict(_lib.launches)
+    for name, smem_of, call in (
+            ("spline_vdiff", lambda n: vdiff.vdiff_launch_shape(
+                n, 2, 10, 12, 8)[2], vdiff.spline_vdiff),
+            ("prep", lambda n: kpp.prep_launch_shape(n, 10, 12, 8)[2],
+             prep.prep),
+            ("kpp", lambda n: kpp.prep_launch_shape(n, 10, 12, 8)[2],
+             kpp.kpp)):
+        N = 2
+        while smem_of(N) <= _lib.SMEM_PER_BLOCK:
+            N += 1
+        env = cs.setup(torch, 10, 8, N - 1, "float64", app="benchmark")
+        args, _ = cs.entry_inputs(torch, name, *env, 5)
+        call(*args)
+        env = cs.setup(torch, 10, 8, N, "float64", app="benchmark")
+        args, _ = cs.entry_inputs(torch, name, *env, 5)
+        with pytest.raises(ValueError, match=name):
+            call(*args)
+        before[name] += 1
     assert _lib.launches == before

@@ -1,13 +1,14 @@
-"""Launch shapes of kernels 2 (tadv), 3 (rhs3d), 4 (uv_solve), 9
-(prsgrd32), 11 (the resident fast loop) and 16 (rot_div_geo) on the
-CPU: the tiles cover the grid, kernel 11's halo, and the dynamic shared
-memory each element size asks for against the H100's 227 KB a block and
-228 KB an SM.  The kernels themselves need the card:
-tests/test_torch_cuda.py."""
+"""Launch shapes of kernels 2 (tadv), 3 (rhs3d), 4 (uv_solve), 6
+(spline_vdiff), 9 (prsgrd32), 11 (the resident fast loop), 14 and 15
+(the KPP and prep column) and 16 (rot_div_geo) on the CPU: the tiles
+cover the grid, kernel 11's halo, and the dynamic shared memory each
+element size asks for against the H100's 227 KB a block and 228 KB an
+SM.  The kernels themselves need the card: tests/test_torch_cuda.py."""
 
 import pytest
 
-from roms_tpu_torch.ops import _lib, hmix, prsgrd, rhs3d, step2d, tadv, uv
+from roms_tpu_torch.ops import (_lib, hmix, kpp, prsgrd, rhs3d, step2d, tadv,
+                                uv, vdiff)
 
 # shared memory of one SM of the H100, 1 KB of it reserved per block
 SMEM_PER_SM = 233472
@@ -211,3 +212,62 @@ def test_tadv_prsgrd_tile_over_shared_memory_is_counted(mod, monkeypatch):
     monkeypatch.setattr(mod, "TILE", (64, 128))
     shape = mod.launch_shape(*((2,) if mod is tadv else ()), 258, 2050, 8)
     assert shape[4] > _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("N", [2, 16, 30, 64])
+def test_prep_launch_shape(N, itemsize):
+    """Kernels 14 and 15: one thread a column, its state in shared memory
+    (the interior bvf (N-1), the Thomas cp (N-2) and the three spline
+    derivatives (N-1 each)) with a stride of one more than the block's
+    threads, within a block's 227 KB up to 64 levels in either type."""
+    state = (N - 1) + (N - 2) + 3 * (N - 1)
+    assert kpp.column_values(N) == state
+    for Mj, Li in SHAPES:
+        B, blocks, smem = kpp.prep_launch_shape(N, Mj, Li, itemsize)
+        assert B == kpp.PREP_THREADS[itemsize] and B % 32 == 0
+        assert blocks == -(-(Mj * Li) // B)
+        assert smem == itemsize * state * (B + 1)
+        assert smem <= _lib.SMEM_PER_BLOCK
+
+
+def test_prep_fills_the_card_in_float32():
+    """At BENCHMARK3's shape and depth the float32 column sweep launches
+    many waves, and at least two blocks fit an SM's shared memory."""
+    B, blocks, smem = kpp.prep_launch_shape(30, *FULL[0], 4)
+    assert blocks >= 10 * SMS
+    assert 2 * (smem + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("N", [2, 16, 30, 64])
+def test_spline_vdiff_launch_shape(N, itemsize):
+    """Kernel 6: NT blocks (one a tracer) per range of columns, 4 N - 2
+    values a thread in shared memory, within a block's 227 KB up to 64
+    levels in either type."""
+    for NT in (1, 2, 5):
+        for Mj, Li in SHAPES:
+            B, blocks, smem = vdiff.vdiff_launch_shape(N, NT, Mj, Li,
+                                                       itemsize)
+            assert B == vdiff.VDIFF_THREADS[itemsize] and B % 32 == 0
+            assert blocks == NT * -(-(Mj * Li) // B)
+            assert smem == itemsize * (4 * N - 2) * B
+            assert smem <= _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape,N", [(FULL[0], 30), (FULL[1], 16)])
+def test_spline_vdiff_fills_the_card_in_float32(shape, N):
+    """At both full-width shapes and depths the float32 sweep of the two
+    tracers launches many waves, and at least two blocks fit an SM's
+    shared memory."""
+    B, blocks, smem = vdiff.vdiff_launch_shape(N, 2, *shape, 4)
+    assert blocks >= 10 * SMS
+    assert 2 * (smem + 1024) <= SMEM_PER_SM
+
+
+def test_column_sweeps_deep_float64_column_exceeds_shared_memory():
+    """200 float64 levels need more than a block's 227 KB in both column
+    sweeps (the wrappers raise on it before launching)."""
+    assert vdiff.vdiff_launch_shape(200, 2, 23, 14, 8)[2] > \
+        _lib.SMEM_PER_BLOCK
+    assert kpp.prep_launch_shape(200, 23, 14, 8)[2] > _lib.SMEM_PER_BLOCK
