@@ -5,15 +5,16 @@
     python3 chip_smoke.py --profile  # only: where the full-width steps'
                                      # time goes (CUDA events, profiler),
                                      # the fast loop's by 2D term and
-                                     # rhs3d's, uv_solve's, tadv's,
-                                     # prsgrd's, prep's and spline_vdiff's
-                                     # time by launch shape
+                                     # rhs3d's, uv_solve's, uv_finish's,
+                                     # tadv's, prsgrd's, uvmix's, prep's
+                                     # and spline_vdiff's time by launch
+                                     # shape
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
      roms_tpu_torch/csrc (one nvcc per source, all started together),
-     the registers and stack frame of the column sweeps (kernels 6, 14
-     and 15);
+     the registers and stack frame of the column sweeps (kernels 5, 6,
+     14 and 15) and of the uvmix tile (kernel 10);
   2. kernel phase: each kernel entry point against its plain PyTorch
      version on the card, same inputs, float64 (rel <= 1e-12; the fast
      loop, 2 x 42 substeps, 1e-11) and float32 (rel <= 1e-5), on seeded
@@ -34,14 +35,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      Mj = 4 and 5, 42 substeps); the redesigned tadv (kernel 2, both
      modes, 1, 2 and 5 tracers), rhs3d (kernel 3) and uv_solve (kernel
      4) on ragged grids and at minimal depths (N = 3 and 4), closed and
-     EW-periodic, tadv's predictor and uv_solve from iic 0, 1 and 5, the
-     redesigned prsgrd (kernel 9) on ragged and 4-lane channels down to
+     EW-periodic, tadv's predictor and uv_solve from iic 0, 1 and 5,
+     uv_finish (kernel 5) on the same grids, the redesigned prsgrd and
+     uvmix (kernels 9 and 10) on ragged and 4-lane channels down to
      N = 2, the column sweeps of prep, KPP alone and spline_vdiff
      (kernels 15, 14 and 6) on the same grids and at N = 2 on a 4-lane
      channel, KPP's boundary layer column by column with a statically
      unstable column every other one, spline_vdiff at one, two and five
-     tracers with one or two Akt profiles and bitwise, and the float64
-     launches of all eight over a block's shared memory refused;
+     tracers with one or two Akt profiles and bitwise, each redesign line
+     saying whether it is bitwise, and the float64 launches over a
+     block's shared memory refused (the tiled kernels with a (64, 128)
+     tile, the column sweeps at the shallowest depth over it);
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
@@ -127,7 +131,8 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_lib.build_seconds:.1f} s)", flush=True)
     print(_lib.ptxas_report(), flush=True)
-    ptxas_summary(("kpp_kernel", "vdiff_kernel"))
+    ptxas_summary(("kpp_kernel", "vdiff_kernel", "uv_finish_kernel",
+                   "uvmix_kernel"))
     _lib.lib()
 
     full = [app for app in APPS if APPS[app]["full"]]
@@ -645,8 +650,8 @@ def kernel_phase_checks(torch):
 # smallest channel (Mj = Li = 4) and the minimal depths
 REDESIGN_SHAPES = [("upwelling", (37, 19, 3)), ("benchmark", (45, 19, 4)),
                    ("upwelling", (2, 2, 3)), ("double_gyre", (30, 61, 4))]
-# kernel 9's shapes: the channels of REDESIGN_SHAPES (its class is
-# EW-periodic) and its minimal depth N = 2 on a 4-lane and a ragged grid
+# kernels 9 and 10's shapes: the channels of REDESIGN_SHAPES (their class
+# is EW-periodic) and N = 2 on a 4-lane and a ragged grid
 PRSGRD_SHAPES = [s for s in REDESIGN_SHAPES if s[0] != "double_gyre"] + [
     ("upwelling", (2, 3, 2)), ("benchmark", (45, 19, 2))]
 # kernel 2's tracer counts: one, the apps' two, and five (three groups of
@@ -695,12 +700,12 @@ def column_cases(torch, env):
 
 
 def redesign_cases(torch, env):
-    """(name, sides, iic, NT, args) of the redesigned kernels 2, 3 and 4
-    on one app's seeded state: the app's lanes and closed walls, tadv's
+    """(name, sides, iic, NT, args) of the redesigned kernels 2, 3, 4 and
+    5 on one app's seeded state: the app's lanes and closed walls, tadv's
     predictor and uv_solve from iic 0, 1 and 5, tadv at TADV_NT."""
     from roms_tpu_torch.config import LBC, BoundaryConfig
     for name in ("tadv_predictor", "tadv_corrector", "rhs3d_momentum",
-                 "uv_solve"):
+                 "uv_solve", "uv_finish"):
         for iic in (0, 1, 5) if name in ("tadv_predictor", "uv_solve") \
                 else (5,):
             args, _ = entry_inputs(torch, name, *env, iic)
@@ -714,15 +719,23 @@ def redesign_cases(torch, env):
                         if name.startswith("tadv") else args)
 
 
+def bitwise(rel):
+    """The note a redesign line ends with: a result that is not bitwise
+    equal to its plain version is printed as such (FAILURES takes it only
+    past TOL)."""
+    return "bitwise" if rel == 0.0 else "NOT bitwise"
+
+
 def redesign_checks(torch):
-    """Kernels 2, 3 and 4 at REDESIGN_SHAPES with the app's lanes and with
-    closed walls, tadv's predictor and uv_solve from iic 0, 1 and 5, tadv
-    at one, two and five tracers; kernel 9 at PRSGRD_SHAPES; kernels 6,
-    14 and 15 at COLUMN_SHAPES (spline_vdiff at VDIFF_TRACERS, bitwise;
-    KPP's boundary layer column by column, both forcing regimes and
-    columns with and without a crossing); kernel 12 on 4-lane channels;
-    the float64 launches over shared memory refused."""
-    from roms_tpu_torch.ops import _lib, kpp, prsgrd, rhs3d, tadv, uv, vdiff
+    """Kernels 2, 3, 4 and 5 at REDESIGN_SHAPES with the app's lanes and
+    with closed walls, tadv's predictor and uv_solve from iic 0, 1 and 5,
+    tadv at one, two and five tracers; kernels 9 and 10 at PRSGRD_SHAPES;
+    kernels 6, 14 and 15 at COLUMN_SHAPES (spline_vdiff at VDIFF_TRACERS,
+    bitwise; KPP's boundary layer column by column, both forcing regimes
+    and columns with and without a crossing); kernel 12 on 4-lane
+    channels; the float64 launches over shared memory refused."""
+    from roms_tpu_torch.ops import (_lib, kpp, prsgrd, rhs3d, tadv, uv, uvmix,
+                                    vdiff)
     for app, (Lm, Mm, N) in REDESIGN_SHAPES:
         for dtype in ("float64", "float32"):
             env = setup(torch, Lm, Mm, N, dtype, app=app)
@@ -730,17 +743,18 @@ def redesign_checks(torch):
                 rel, abs_err = compare(torch, name, args, dtype)
                 print(f"kernel redesign {app:11s} {name:15s} {dtype} "
                       f"{sides:6s} N={N} Mj={Mm + 2} Li={Lm + 2} NT={NT} "
-                      f"iic={iic}: max rel {rel:.3e} max abs {abs_err:.3e}",
-                      flush=True)
+                      f"iic={iic}: max rel {rel:.3e} max abs {abs_err:.3e} "
+                      f"{bitwise(rel)}", flush=True)
             del env
     for app, (Lm, Mm, N) in PRSGRD_SHAPES:
         for dtype in ("float64", "float32"):
             env = setup(torch, Lm, Mm, N, dtype, app=app)
-            args, _ = entry_inputs(torch, "prsgrd32", *env, 5)
-            rel, abs_err = compare(torch, "prsgrd32", args, dtype)
-            print(f"kernel redesign {app:11s} prsgrd32        {dtype} app    "
-                  f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
-                  f"abs {abs_err:.3e}", flush=True)
+            for name in ("prsgrd32", "uv3dmix2_s"):
+                args, _ = entry_inputs(torch, name, *env, 5)
+                rel, abs_err = compare(torch, name, args, dtype)
+                print(f"kernel redesign {app:11s} {name:15s} {dtype} app    "
+                      f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
+                      f"abs {abs_err:.3e} {bitwise(rel)}", flush=True)
             del env
     for app, (Lm, Mm, N) in COLUMN_SHAPES:
         for dtype in ("float64", "float32"):
@@ -749,7 +763,7 @@ def redesign_checks(torch):
                 rel, abs_err = compare(torch, name, args, dtype)
                 print(f"kernel redesign {app:11s} {name:15s} {dtype} app    "
                       f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} "
-                      f"max abs {abs_err:.3e}", flush=True)
+                      f"max abs {abs_err:.3e} {bitwise(rel)}", flush=True)
                 hsbl_check(torch, name, args, dtype,
                            label=f"kernel redesign {app:11s}", regimes=True)
             args, _ = entry_inputs(torch, "spline_vdiff", *env, 5)
@@ -758,8 +772,8 @@ def redesign_checks(torch):
                     torch, args, NT, NAT), dtype)
                 print(f"kernel redesign {app:11s} spline_vdiff    {dtype} "
                       f"app    N={N} Mj={Mm + 2} Li={Lm + 2} NT={NT} "
-                      f"NAT={NAT}: max rel {rel:.3e} max abs {abs_err:.3e}",
-                      flush=True)
+                      f"NAT={NAT}: max rel {rel:.3e} max abs {abs_err:.3e} "
+                      f"{bitwise(rel)}", flush=True)
                 if rel:
                     FAILURES.append(f"spline_vdiff {dtype} {app} N={N} NT="
                                     f"{NT} NAT={NAT}: max rel {rel:.3e}, not "
@@ -782,6 +796,7 @@ def redesign_checks(torch):
 
     argsp, _ = entry_inputs(torch, "prsgrd32", *env, 5)
     argst, _ = entry_inputs(torch, "tadv_corrector", *env, 5)
+    argsm, _ = entry_inputs(torch, "uv3dmix2_s", *env, 5)
 
     def big_tile(mod, call, args):
         def run():
@@ -797,10 +812,14 @@ def redesign_checks(torch):
          big_tile(rhs3d, rhs3d.rhs3d_momentum, args3)),
         ("tadv_corrector tile (64, 128)",
          big_tile(tadv, tadv.corrector, argst)),
-        ("prsgrd32 tile (64, 128)", big_tile(prsgrd, prsgrd.prsgrd32, argsp))]
+        ("prsgrd32 tile (64, 128)", big_tile(prsgrd, prsgrd.prsgrd32, argsp)),
+        ("uv3dmix2_s tile (64, 128)", big_tile(uvmix, uvmix.uv3dmix2_s,
+                                               argsm))]
     # the column sweeps at the shallowest float64 depth whose state
     # exceeds a block's shared memory
     for name, smem_of, call in (
+            ("uv_finish", lambda n: uv.finish_launch_shape(
+                n, 10, 12, 8)[2], uv.uv_finish),
             ("spline_vdiff", lambda n: vdiff.vdiff_launch_shape(
                 n, 2, 10, 12, 8)[2], vdiff.spline_vdiff),
             ("prep", lambda n: kpp.prep_launch_shape(n, 10, 12, 8)[2],
@@ -1254,14 +1273,23 @@ def kernel_table(torch, app, counts):
             print(f"{app} {name} tile {TJ}x{TI}, halo {halo}, {blocks} "
                   f"blocks, {smem} B dynamic shared memory a block; window "
                   f"{win:.3f}x the tile (halo from L2)", flush=True)
-        if name == "uv_solve":
-            from roms_tpu_torch.ops.uv import solve_launch_shape
+        if name in ("uv_solve", "uv_finish"):
+            from roms_tpu_torch.ops import uv
             N, Mj, Li = outs[0].shape
-            B, blocks, smem = solve_launch_shape(N, Mj, Li,
-                                                 outs[0].element_size())
-            print(f"{app} uv_solve {B} threads a block, {blocks} blocks (u "
+            shape_of, vals = (uv.solve_launch_shape, 4 * N - 2) \
+                if name == "uv_solve" else (uv.finish_launch_shape, 2 * N)
+            B, blocks, smem = shape_of(N, Mj, Li, outs[0].element_size())
+            print(f"{app} {name} {B} threads a block, {blocks} blocks (u "
                   f"and v), {smem} B dynamic shared memory a block "
-                  f"({4 * N - 2} values a thread)", flush=True)
+                  f"({vals} values a thread)", flush=True)
+        if name == "uv3dmix2_s":
+            from roms_tpu_torch.ops import uvmix
+            TJ, TI, blocks, smem = uvmix.launch_shape(
+                *outs[0].shape[1:], outs[0].element_size())
+            win = (TJ + 2) * (TI + 2) / (TJ * TI)
+            print(f"{app} uv3dmix2_s tile {TJ}x{TI}, halo 1, {blocks} "
+                  f"blocks, {smem} B dynamic shared memory a block; window "
+                  f"{win:.3f}x the tile (halo from L2)", flush=True)
         if name in ("prep", "kpp", "spline_vdiff"):
             from roms_tpu_torch.ops import kpp as kpp_op
             from roms_tpu_torch.ops import vdiff as vdiff_op
@@ -1318,10 +1346,13 @@ def fast_loop_terms(torch, app):
 
 
 # the launch shapes timed against the chosen ones (ops/rhs3d.py TILE,
-# ops/uv.py SOLVE_THREADS, ops/tadv.py TILE, ops/prsgrd.py TILE,
-# ops/kpp.py PREP_THREADS, ops/vdiff.py VDIFF_THREADS)
+# ops/uv.py SOLVE_THREADS and FINISH_THREADS, ops/tadv.py TILE,
+# ops/prsgrd.py TILE, ops/uvmix.py TILE, ops/kpp.py PREP_THREADS,
+# ops/vdiff.py VDIFF_THREADS)
 RHS3D_TILES = ((8, 32), (16, 16), (4, 64), (8, 16))
 UV_SOLVE_THREADS = (64, 96, 128, 192)
+UV_FINISH_THREADS = (64, 96, 128, 192, 256)
+UVMIX_TILES = ((7, 31), (15, 15), (3, 63), (7, 15), (3, 31))
 TADV_TILES = ((7, 31), (8, 32), (15, 15), (16, 16), (4, 64))
 PRSGRD_TILES = ((7, 31), (15, 15), (3, 63), (7, 15), (3, 31))
 PREP_THREADS_TRIED = (32, 64, 96, 128)
@@ -1330,13 +1361,13 @@ VDIFF_THREADS_TRIED = (64, 96, 128, 192, 256)
 
 def launch_shapes(torch, app):
     """rhs3d's time with each tile of RHS3D_TILES (and with its advection
-    or Coriolis term off), uv_solve's with each block size of
-    UV_SOLVE_THREADS, tadv's (both modes) with each of TADV_TILES,
-    prsgrd's with each of PRSGRD_TILES, and prep's and spline_vdiff's
-    with each block size of PREP_THREADS_TRIED and VDIFF_THREADS_TRIED at
-    the app's full width, float32, each output bitwise against the chosen
-    shape's."""
-    from roms_tpu_torch.ops import kpp, prsgrd, rhs3d, tadv, uv, vdiff
+    or Coriolis term off), uv_solve's and uv_finish's with each block size
+    of UV_SOLVE_THREADS and UV_FINISH_THREADS, tadv's (both modes) with
+    each of TADV_TILES, prsgrd's and uvmix's with each of PRSGRD_TILES
+    and UVMIX_TILES, and prep's and spline_vdiff's with each block size of
+    PREP_THREADS_TRIED and VDIFF_THREADS_TRIED at the app's full width,
+    float32, each output bitwise against the chosen shape's."""
+    from roms_tpu_torch.ops import kpp, prsgrd, rhs3d, tadv, uv, uvmix, vdiff
 
     def tile_of(mod):
         return lambda: mod.TILE, lambda x: setattr(mod, "TILE", x)
@@ -1345,6 +1376,9 @@ def launch_shapes(torch, app):
             ("rhs3d_momentum", RHS3D_TILES, *tile_of(rhs3d)),
             ("uv_solve", UV_SOLVE_THREADS, lambda: uv.SOLVE_THREADS[4],
              lambda x: uv.SOLVE_THREADS.__setitem__(4, x)),
+            ("uv_finish", UV_FINISH_THREADS, lambda: uv.FINISH_THREADS[4],
+             lambda x: uv.FINISH_THREADS.__setitem__(4, x)),
+            ("uv3dmix2_s", UVMIX_TILES, *tile_of(uvmix)),
             ("tadv_predictor", TADV_TILES, *tile_of(tadv)),
             ("tadv_corrector", TADV_TILES, *tile_of(tadv)),
             ("prsgrd32", PRSGRD_TILES, *tile_of(prsgrd)),

@@ -10,10 +10,6 @@
 namespace roms {
 
 constexpr int kThreads = 256;
-// deepest column uv_finish takes (ops/_lib.py KNMAX): its per-thread
-// local arrays are sized by it (the other column kernels keep their
-// columns in shared memory sized by N at runtime)
-constexpr int kNmax = 64;
 
 // jnp.roll wrap of i + s for |s| < n
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -24,6 +20,45 @@ __device__ __forceinline__ int wrap(int i, int n) {
 __device__ __forceinline__ int mod(int x, int n) {
   const int r = x % n;
   return r < 0 ? r + n : r;
+}
+
+// The tile of one block of a k-marching tiled kernel (rhs3d, tadv,
+// prsgrd, uvmix) over an (Mj, Li) grid: at most TJ x TI points, blockIdx.y
+// the row tile and blockIdx.x the lane tile.  The lane tiling is shifted
+// by half a tile, so that the periodic seam (lanes Li-2 .. 1) lies inside
+// tile 0; the wrappers widen a tile of fewer than five lanes for that
+// (ops/_lib.py seam_tiles).
+struct Tile {
+  int j0, i0;   // the tile's first row and lane (i0 < 0 in tile 0)
+  int tj, ti;   // its rows and lanes (fewer in the last tiles)
+
+  __device__ Tile(int TJ, int TI, int Mj, int Li)
+      : j0(static_cast<int>(blockIdx.y) * TJ),
+        i0(static_cast<int>(blockIdx.x) * TI - TI / 2),
+        tj(min(TJ, Mj - j0)),
+        ti(min(TI, Li - static_cast<int>(blockIdx.x) * TI)) {}
+
+  // the global row and lane of each position of a window that starts
+  // `lo` rows and lanes before the tile (WJ rows, WI lanes), wrapping as
+  // jnp.roll wraps; the block synchronises before reading them
+  __device__ void tables(int lo, int WJ, int WI, int Mj, int Li, int* rowg,
+                         int* colg) const {
+    for (int n = threadIdx.x; n < WJ; n += blockDim.x)
+      rowg[n] = mod(j0 - lo + n, Mj);
+    for (int n = threadIdx.x; n < WI; n += blockDim.x)
+      colg[n] = mod(i0 - lo + n, Li);
+  }
+};
+
+// a kernel's dynamic shared memory raised to `smem` bytes; a refusal's
+// error is cleared, so that it is not the next launch's
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 inline int blocks_for(long long n) {

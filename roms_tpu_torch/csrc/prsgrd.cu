@@ -143,10 +143,10 @@ prsgrd_kernel(const __grid_constant__ Params<T> p) {
   const int WI = s.WI;
   const size_t P = static_cast<size_t>(Mj) * Li;
   const T HalfGRho = p.HalfGRho;
-  // lane tiling shifted by half a tile: the periodic seam lies in tile 0
-  const int j0 = blockIdx.y * p.TJ, i0 = blockIdx.x * p.TI - p.TI / 2;
-  const int tj = min(p.TJ, Mj - j0);
-  const int ti = min(p.TI, Li - static_cast<int>(blockIdx.x) * p.TI);
+  // the block's tile (lane tiling shifted by half a tile: the periodic
+  // seam lies in tile 0)
+  const roms::Tile t(p.TJ, p.TI, Mj, Li);
+  const int tj = t.tj, ti = t.ti;
   const int wi = ti + kHaloLo + kHaloHi;
 
   // tables: global row and lane of each window position; where the ringed
@@ -154,10 +154,7 @@ prsgrd_kernel(const __grid_constant__ Params<T> p) {
   // position with neighbours both sides) take their values
   __shared__ int mapped;
   if (threadIdx.x == 0) mapped = 0;
-  for (int n = threadIdx.x; n < s.WJ; n += blockDim.x)
-    s.rowg[n] = roms::mod(j0 - kHaloLo + n, Mj);
-  for (int n = threadIdx.x; n < WI; n += blockDim.x)
-    s.colg[n] = roms::mod(i0 - kHaloLo + n, Li);
+  t.tables(kHaloLo, s.WJ, WI, Mj, Li, s.rowg, s.colg);
   __syncthreads();
   for (int n = threadIdx.x; n < WI; n += blockDim.x) {
     const int g = s.colg[n];

@@ -162,10 +162,10 @@ rhs3d_kernel(const __grid_constant__ Params<T> p) {
   const int WJ = s.WJ, WI = s.WI;
   const size_t P = static_cast<size_t>(Mj) * Li;
   const bool ewp = p.ewp != 0;
-  // lane tiling shifted by half a tile: the periodic seam lies in tile 0
-  const int j0 = blockIdx.y * p.TJ, i0 = blockIdx.x * p.TI - p.TI / 2;
-  const int tj = min(p.TJ, Mj - j0);
-  const int ti = min(p.TI, Li - static_cast<int>(blockIdx.x) * p.TI);
+  // the block's tile (lane tiling shifted by half a tile: the periodic
+  // seam lies in tile 0)
+  const roms::Tile t(p.TJ, p.TI, Mj, Li);
+  const int tj = t.tj, ti = t.ti;
   const int wj = tj + 2 * kHalo, wi = ti + 2 * kHalo;
 
   // tables: global row and lane of each window position and where each
@@ -174,10 +174,10 @@ rhs3d_kernel(const __grid_constant__ Params<T> p) {
   // identity, and the other tiles (most) skip the tables
   __shared__ int mapped;
   if (threadIdx.x == 0) mapped = 0;
+  t.tables(kHalo, WJ, WI, Mj, Li, s.rowg, s.colg);
   __syncthreads();
   for (int n = threadIdx.x; n < WJ; n += blockDim.x) {
-    const int g = roms::mod(j0 - kHalo + n, Mj);
-    s.rowg[n] = g;
+    const int g = s.rowg[n];
     int mu = g == 0 ? 1 : g;
     if (g == Mj - 1) mu = Mj - 2 == 0 ? 1 : Mj - 2;
     int mv = g == 1 ? 2 : g;
@@ -187,8 +187,7 @@ rhs3d_kernel(const __grid_constant__ Params<T> p) {
     if (s.tue[n] != n || s.tve[n] != n) mapped = 1;
   }
   for (int n = threadIdx.x; n < WI; n += blockDim.x) {
-    const int g = roms::mod(i0 - kHalo + n, Li);
-    s.colg[n] = g;
+    const int g = s.colg[n];
     int mu, mv, mr;
     if (ewp) {
       mr = g == 0 ? Li - 2 : (g == Li - 1 ? 1 : g);

@@ -141,10 +141,10 @@ tadv_kernel(const __grid_constant__ Params<T> p) {
   const bool ewp = p.ewp != 0;
   const int g0 = blockIdx.z * kGroup;
   const int gn = min(kGroup, p.NT - g0);
-  // lane tiling shifted by half a tile: the periodic seam lies in tile 0
-  const int j0 = blockIdx.y * p.TJ, i0 = blockIdx.x * p.TI - p.TI / 2;
-  const int tj = min(p.TJ, Mj - j0);
-  const int ti = min(p.TI, Li - static_cast<int>(blockIdx.x) * p.TI);
+  // the block's tile (lane tiling shifted by half a tile: the periodic
+  // seam lies in tile 0)
+  const roms::Tile t(p.TJ, p.TI, Mj, Li);
+  const int tj = t.tj, ti = t.ti;
   const int wi = ti + 2 * kHalo;
 
   // tables: global row and lane of each window position; the position
@@ -152,10 +152,7 @@ tadv_kernel(const __grid_constant__ Params<T> p) {
   // set where that is not the identity
   __shared__ int mapped;
   if (threadIdx.x == 0) mapped = 0;
-  for (int n = threadIdx.x; n < s.WJ; n += blockDim.x)
-    s.rowg[n] = roms::mod(j0 - kHalo + n, Mj);
-  for (int n = threadIdx.x; n < WI; n += blockDim.x)
-    s.colg[n] = roms::mod(i0 - kHalo + n, Li);
+  t.tables(kHalo, s.WJ, WI, Mj, Li, s.rowg, s.colg);
   __syncthreads();
   for (int n = threadIdx.x; n < WI; n += blockDim.x) {
     const int g = s.colg[n];

@@ -23,23 +23,24 @@
 // planes and writes 4 N-fields and 2 planes.  The Thomas sweep is ~20
 // flops per level.
 //
-// Design, uv_solve: one thread per column and component (u and v in
-// different blocks, the two blocks of a column range next to each other
-// so that they share Hz and Akv in L2), streaming the column's levels
-// once from device memory; the sweep's state lives in dynamic shared
-// memory sized by N, threads a block by element size (ops/uv.py
-// solve_launch_shape).  uv_finish: one thread per (j, i) column, i fastest
-// for coalesced k-plane access, the column in per-thread local arrays
-// (bound kNmax).
+// Design, both entry points: one thread per column and component (u and
+// v in different blocks, the two blocks of a column range next to each
+// other so that they share Hz (and uv_solve's Akv) in L2), streaming the
+// column's levels once from device memory with a few levels in flight in
+// registers; what the later passes need lives in dynamic shared memory
+// laid out [k][thread] and sized by N, threads a block by element size
+// (ops/uv.py solve_launch_shape, finish_launch_shape).  No local array,
+// so no stack frame; a depth whose state exceeds a block's shared memory
+// is refused by the wrapper.
 #include "common.cuh"
 
 namespace {
 
-using roms::kNmax;
+using roms::allow_smem;
 using roms::mul_rn;
 using roms::wrap;
 
-// levels uv_solve's sweep keeps in flight ahead of the one it works on
+// levels a column sweep keeps in flight ahead of the one it works on
 constexpr int kAhead = 4;
 
 template <typename T>
@@ -50,20 +51,6 @@ struct SolveArgs {
   int N, Mj, Li;
   T dt, cffab;
 };
-
-// q <- (q - err)*mask, err from the thickness-weighted mean vs avg1
-// (roms_tpu/ops/pallas_uv.py _correct); uv_finish's column form
-template <typename T>
-__device__ void correct(int N, T* q, const T* Hzq, T scale, T avg1,
-                        T mask) {
-  T D = T(0), s = T(0);
-  for (int k = 0; k < N; ++k) {
-    D = D + Hzq[k];
-    s = s + q[k] * Hzq[k];
-  }
-  const T err = (s * scale - avg1) / (D * scale);
-  for (int k = 0; k < N; ++k) q[k] = (q[k] - err) * mask;
-}
 
 // the face average 0.5 (f[c] + f[cn]) of level k
 template <typename T>
@@ -237,73 +224,135 @@ struct FinishArgs {
   int N, Mj, Li, ewp;
 };
 
-// re-correction, barotropic velocity and time-centred flux of one
-// column of one component, its face neighbour at cn; the flux column goes
-// to lane c unless `own` is false, and to lane c2 as well when c2 >= 0
+// One column of one component of uv_finish: block x = 2 b + component
+// (u, v) holds columns b B .. b B + B - 1, its face neighbour at (j, i-1)
+// for u and (j-1, i) for v.  Three passes over the column:
+//   1. k = 0 .. N-1, streamed (kAhead levels in flight): the face
+//      thickness hz, D = sum hz and S = sum q hz of _correct; hz*scale
+//      and q kept;
+//   2. from shared memory: q <- (q - err) mask written, and the
+//      time-centred flux F = 0.5 (F_old + q hz scale), F_old streamed, its
+//      sum kept and F kept in q's slot;
+//   3. F - hz scale err2 written, on an EW-periodic grid by the threads
+//      of lanes Li-2 and 1 into lanes 0 and Li-1 as well (st.periodic_x),
+//      whose own threads leave their flux column alone.
+// The sums run in torch.sum's order over dim 0 below 64 levels (four
+// accumulators by k mod 4, combined in order).  hz*scale and q live in
+// shared memory [k][thread] (2 N values a thread), no local array.  Every
+// product that feeds an add or subtract is mul_rn and the quotients are
+// IEEE divisions, so each value rounds as in the plain version.
 template <typename T>
-__device__ void finish_column(const FinishArgs<T>& a, int c, int cn,
-                              const T* qn, const T* flux_old, T scale,
-                              T avg1, T avg2, T mask, T* out_q, T* out_bar,
-                              T* out_flux, bool own, int c2) {
-  const int N = a.N;
-  const int P = a.Mj * a.Li;
-  T hz[kNmax], q[kNmax];
-  T D = T(0);
-  for (int k = 0; k < N; ++k) {
-    const size_t o = static_cast<size_t>(k) * P;
-    hz[k] = T(0.5) * (a.Hz[o + c] + a.Hz[o + cn]);
-    q[k] = qn[o + c];
-    D = D + hz[k];
-  }
-  correct(N, q, hz, scale, avg1, mask);
-  for (int k = 0; k < N; ++k) out_q[static_cast<size_t>(k) * P + c] = q[k];
-  out_bar[c] = avg1 / (D * scale) * mask;
-  T sum = T(0);
-  for (int k = 0; k < N; ++k) {
-    const size_t o = static_cast<size_t>(k) * P + c;
-    q[k] = T(0.5) * (flux_old[o] + q[k] * (hz[k] * scale));
-    sum = sum + q[k];
-  }
-  const T err = (sum - avg2) / (D * scale);
-  for (int k = 0; k < N; ++k) {
-    const T f = q[k] - hz[k] * scale * err;
-    if (own) out_flux[static_cast<size_t>(k) * P + c] = f;
-    if (c2 >= 0) out_flux[static_cast<size_t>(k) * P + c2] = f;
-  }
-}
+__global__ void uv_finish_kernel(const __grid_constant__ FinishArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = blockDim.x, N = a.N, Li = a.Li;
+  const size_t P = static_cast<size_t>(a.Mj) * Li;
+  const bool vc = blockIdx.x & 1;
+  const size_t c = static_cast<size_t>(blockIdx.x >> 1) * B + threadIdx.x;
+  if (c >= P) return;   // no barrier below: each thread owns its slots
+  const int i = static_cast<int>(c % Li), j = static_cast<int>(c / Li);
+  const size_t cn = vc ? static_cast<size_t>(wrap(j - 1, a.Mj)) * Li + i
+                       : c - i + wrap(i - 1, Li);
+  const T* qn = vc ? a.vn : a.un;
+  const T* old = vc ? a.Hvom_old : a.Huon_old;
+  const T scale = vc ? a.om_v[c] : a.on_u[c];
+  const T avg1 = vc ? a.DV1[c] : a.DU1[c];
+  const T avg2 = vc ? a.DV2[c] : a.DU2[c];
+  const T mask = vc ? a.vmask[c] : a.umask[c];
+  T* hs_s = reinterpret_cast<T*>(smem) + threadIdx.x;
+  T* q_s = hs_s + static_cast<size_t>(N) * B;
+  static_assert(kAhead == 4, "the ring's slot is the sums' k mod 4");
 
-template <typename T>
-__global__ void uv_finish_kernel(FinishArgs<T> a) {
-  const int Li = a.Li;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.Mj * Li) return;
-  const int i = c % Li, j = c / Li;
-  const int cw = c - i + wrap(i - 1, Li);      // (j, i-1)
-  const int cs = wrap(j - 1, a.Mj) * Li + i;   // (j-1, i)
-  // periodic lanes: lane 0 <- lane Li-2, lane Li-1 <- lane 1
+  // 1. hz, D and S; the raw values of levels k+1 .. k+kAhead in flight
+  T d[4] = {T(0), T(0), T(0), T(0)}, s[4] = {T(0), T(0), T(0), T(0)};
+  T rh0[kAhead], rh1[kAhead], rq[kAhead];
+  auto fetch = [&](int k, int u) {
+    const size_t o = static_cast<size_t>(k) * P;
+    rh0[u] = a.Hz[o + c];
+    rh1[u] = a.Hz[o + cn];
+    rq[u] = qn[o + c];
+  };
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u)
+    if (u < N) fetch(u, u);
+  for (int k0 = 0; k0 < N; k0 += kAhead) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int k = k0 + u;
+      if (k >= N) break;
+      const T hz = T(0.5) * (rh0[u] + rh1[u]);
+      const T q = rq[u];
+      if (k + kAhead < N) fetch(k + kAhead, u);
+      d[u] = d[u] + hz;
+      s[u] = s[u] + mul_rn(q, hz);
+      const size_t o = static_cast<size_t>(k) * B;
+      hs_s[o] = mul_rn(hz, scale);
+      q_s[o] = q;
+    }
+  }
+  const T D = ((d[0] + d[1]) + d[2]) + d[3];
+  const T S = ((s[0] + s[1]) + s[2]) + s[3];
+  const T Ds = mul_rn(D, scale);
+  const T err = (mul_rn(S, scale) - avg1) / Ds;
+  (vc ? a.vbar : a.ubar)[c] = avg1 / Ds * mask;
+
+  // 2. the corrected velocity and the time-centred flux; F_old in flight
+  T* out_q = vc ? a.out_v : a.out_u;
+  T f[4] = {T(0), T(0), T(0), T(0)}, ro[kAhead];
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u)
+    if (u < N) ro[u] = old[static_cast<size_t>(u) * P + c];
+  for (int k0 = 0; k0 < N; k0 += kAhead) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int k = k0 + u;
+      if (k >= N) break;
+      const T fo = ro[u];
+      if (k + kAhead < N) ro[u] = old[static_cast<size_t>(k + kAhead) * P + c];
+      const size_t o = static_cast<size_t>(k) * B;
+      const T q = mul_rn(q_s[o] - err, mask);
+      out_q[static_cast<size_t>(k) * P + c] = q;
+      const T F = T(0.5) * (fo + mul_rn(q, hs_s[o]));
+      q_s[o] = F;
+      f[u] = f[u] + F;
+    }
+  }
+  const T err2 = ((((f[0] + f[1]) + f[2]) + f[3]) - avg2) / Ds;
+
+  // 3. the flux made consistent with avg2, and the periodic lanes
+  T* flux = vc ? a.Hvom : a.Huon;
   const bool own = !a.ewp || (i != 0 && i != Li - 1);
-  const int c2 = !a.ewp ? -1 : (i == Li - 2 ? c - i : (i == 1 ? c - i + Li - 1
-                                                               : -1));
-  finish_column(a, c, cw, a.un, a.Huon_old, a.on_u[c], a.DU1[c], a.DU2[c],
-                a.umask[c], a.out_u, a.ubar, a.Huon, own, c2);
-  finish_column(a, c, cs, a.vn, a.Hvom_old, a.om_v[c], a.DV1[c], a.DV2[c],
-                a.vmask[c], a.out_v, a.vbar, a.Hvom, own, c2);
+  const size_t c2 = !a.ewp ? P : (i == Li - 2 ? c - i
+                                              : (i == 1 ? c - i + Li - 1 : P));
+  for (int k = 0; k < N; ++k) {
+    const size_t o = static_cast<size_t>(k) * B;
+    const T F = q_s[o] - mul_rn(hs_s[o], err2);
+    const size_t g = static_cast<size_t>(k) * P;
+    if (own) flux[g + c] = F;
+    if (c2 < P) flux[g + c2] = F;
+  }
 }
 
 template <typename T>
 int solve(const SolveArgs<T>& a, int threads, void* stream) {
   const size_t smem = sizeof(T) * static_cast<size_t>(4 * a.N - 2) * threads;
-  const cudaError_t err = cudaFuncSetAttribute(
-      uv_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();   // this launch's error, not the next one's
-    return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(uv_solve_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long P = static_cast<long long>(a.Mj) * a.Li;
   const int blocks = static_cast<int>(2 * ((P + threads - 1) / threads));
   uv_solve_kernel<T><<<blocks, threads, smem,
                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int finish(const FinishArgs<T>& a, int threads, void* stream) {
+  const size_t smem = sizeof(T) * static_cast<size_t>(2 * a.N) * threads;
+  const cudaError_t err = allow_smem(uv_finish_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long P = static_cast<long long>(a.Mj) * a.Li;
+  const int blocks = static_cast<int>(2 * ((P + threads - 1) / threads));
+  uv_finish_kernel<T><<<blocks, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -333,7 +382,7 @@ int solve(const SolveArgs<T>& a, int threads, void* stream) {
                         const void* DV1, const void* DU2, const void* DV2,  \
                         void* out_u, void* out_v, void* ubar, void* vbar,   \
                         void* Huon, void* Hvom, int N, int Mj, int Li,      \
-                        int ewp, void* stream) {                            \
+                        int ewp, int threads, void* stream) {               \
     FinishArgs<T> a{                                                         \
         (const T*)un,    (const T*)vn,    (const T*)Hz,                     \
         (const T*)Huon_old, (const T*)Hvom_old, (const T*)umask,            \
@@ -341,9 +390,7 @@ int solve(const SolveArgs<T>& a, int threads, void* stream) {
         (const T*)DV1,   (const T*)DU2,   (const T*)DV2,  (T*)out_u,        \
         (T*)out_v,       (T*)ubar,        (T*)vbar,       (T*)Huon,         \
         (T*)Hvom,        N, Mj, Li, ewp};                                    \
-    uv_finish_kernel<T><<<roms::blocks_for((long long)Mj * Li),             \
-                          roms::kThreads, 0, (cudaStream_t)stream>>>(a);    \
-    return (int)cudaGetLastError();                                          \
+    return finish<T>(a, threads, stream);                                    \
   }
 
 ROMS_UV_ENTRIES(roms_uv_solve_f32, roms_uv_finish_f32, float)

@@ -183,13 +183,15 @@ def even_tiles(Mj: int, Li: int, tile):
     return -(-Mj // nj), -(-Li // ni)
 
 
-# deepest column the column kernels take (csrc/common.cuh kNmax)
-KNMAX = 64
-
-
-def require_depth(name: str, N: int):
-    if not 2 <= N <= KNMAX:
-        raise ValueError(f"{name}: kernel takes 2 <= N <= {KNMAX}, got {N}")
+def seam_tiles(Mj: int, Li: int, tile):
+    """(TJ, TI, blocks) of a k-marching tiled kernel (csrc/common.cuh
+    Tile): `even_tiles`, with a tile of fewer than five lanes widened (up
+    to the grid's width).  The kernel shifts its lane tiling by TI // 2,
+    and the periodic seam's ring lanes Li-2 .. 1 lie in one tile only if
+    it is that wide."""
+    TJ, TI = even_tiles(Mj, Li, tile)
+    TI = max(TI, min(Li, 5))
+    return TJ, TI, -(-Mj // TJ) * -(-Li // TI)
 
 
 def prepare(name: str, tensors):

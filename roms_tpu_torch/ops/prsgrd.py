@@ -36,11 +36,10 @@ def launch_shape(Mj: int, Li: int, itemsize: int):
     fewer than five lanes is widened (up to the grid's width): the lane
     tiling is shifted by TI // 2, and the periodic ring positions the
     seam's tile reaches stay in its window only if it spans the seam."""
-    TJ, TI = _lib.even_tiles(Mj, Li, TILE)
-    TI = max(TI, min(Li, 5))
+    TJ, TI, blocks = _lib.seam_tiles(Mj, Li, TILE)
     WJ, WI = TJ + sum(HALO), TI + sum(HALO)
     smem = itemsize * WINDOW_PLANES * WJ * WI + 4 * (WJ + 3 * WI + WJ * WI)
-    return TJ, TI, HALO, -(-Mj // TJ) * -(-Li // TI), smem
+    return TJ, TI, HALO, blocks, smem
 
 
 def covers(cfg, grid=None, eq_tide=None, Pair=None) -> bool:

@@ -33,11 +33,10 @@ def launch_shape(Mj: int, Li: int, itemsize: int):
     shifted by TI // 2, and the periodic seam's ring positions stay in
     the seam's tile only if it reaches two lanes west and three east of
     the seam."""
-    TJ, TI = _lib.even_tiles(Mj, Li, TILE)
-    TI = max(TI, min(Li, 5))
+    TJ, TI, blocks = _lib.seam_tiles(Mj, Li, TILE)
     WJ, WI = TJ + 2 * HALO, TI + 2 * HALO
     smem = itemsize * WINDOW_PLANES * WJ * WI + 4 * (3 * WJ + 4 * WI)
-    return TJ, TI, HALO, -(-Mj // TJ) * -(-Li // TI), smem
+    return TJ, TI, HALO, blocks, smem
 
 
 def covers(cfg) -> bool:

@@ -40,15 +40,15 @@ def launch_shape(NT: int, Mj: int, Li: int, itemsize: int):
     tiling is shifted by TI // 2, and the periodic seam's ring positions
     stay in the seam's tile only if it reaches two lanes west and three
     east of the seam."""
-    TJ, TI = _lib.even_tiles(Mj, Li, TILE)
-    TI = max(TI, min(Li, 5))
+    TJ, TI, tiles = _lib.seam_tiles(Mj, Li, TILE)
     G = min(NT, GROUP)
     WJ, WI = TJ + 2 * HALO, TI + 2 * HALO
     smem = itemsize * ((STAGES * (G + 2) + 2 + 2 * G) * WJ * WI
                        + STAGES * (G + 2) * THREADS) \
         + 4 * (WJ + 2 * WI + WJ * WI + (TJ + 1) * (TI + 1))
-    blocks = -(-Mj // TJ) * -(-Li // TI) * -(-NT // GROUP)
-    return TJ, TI, HALO, blocks, smem
+    return TJ, TI, HALO, tiles * -(-NT // GROUP), smem
+
+
 def covers(cfg) -> bool:
     """Non-NS-periodic grids with UP3/C4 advection of every tracer."""
     return not cfg.bc.ns_periodic and all(

@@ -7,9 +7,9 @@ averages with the same wrap as `st.im1`/`st.jm1` (jnp.roll), and on an
 EW-periodic grid uv_finish refreshes the Huon/Hvom lanes itself.
 `covers` is the class of `use_pallas_uv` (pallas_uv.py:255).
 
-uv_solve is one thread per column and component, streaming the column's
-levels once, its sweep state in shared memory sized by N
-(`solve_launch_shape`); uv_finish one thread per column.
+Both are one thread per column and component, streaming the column's
+levels once, the state of their later passes in shared memory sized by N
+(`solve_launch_shape`, `finish_launch_shape`).
 """
 
 from __future__ import annotations
@@ -32,6 +32,20 @@ def solve_launch_shape(N: int, Mj: int, Li: int, itemsize: int):
     blocks (u and v) per range of `threads` columns."""
     B = SOLVE_THREADS[itemsize]
     return B, 2 * -(-(Mj * Li) // B), itemsize * (4 * N - 2) * B
+
+
+# uv_finish's threads a block by element size: it keeps hz*scale and q,
+# 2 N values a thread, in shared memory (csrc/uv.cu uv_finish_kernel);
+# float32's 128 ties 64 as the fastest of the block sizes `chip_smoke.py
+# --profile` times on the H100 at both full-width shapes (PERF.md)
+FINISH_THREADS = {4: 128, 8: 64}
+
+
+def finish_launch_shape(N: int, Mj: int, Li: int, itemsize: int):
+    """uv_finish's (threads, blocks, dynamic shared memory bytes): two
+    blocks (u and v) per range of `threads` columns."""
+    B = FINISH_THREADS[itemsize]
+    return B, 2 * -(-(Mj * Li) // B), itemsize * 2 * N * B
 
 
 def covers(cfg) -> bool:
@@ -143,23 +157,33 @@ def uv_finish(cfg, grid, un, vn, Hz, Huon_old, Hvom_old,
     if un.device.type == "cpu":
         return uv_finish_plain(cfg, grid, un, vn, Hz, Huon_old, Hvom_old,
                                DU_avg1, DV_avg1, DU_avg2, DV_avg2)
+    return _launch_finish(cfg, grid, un, vn, Hz, Huon_old, Hvom_old,
+                          DU_avg1, DV_avg1, DU_avg2, DV_avg2)
+
+
+def _launch_finish(cfg, grid, un, vn, Hz, Huon_old, Hvom_old,
+                   DU_avg1, DV_avg1, DU_avg2, DV_avg2):
     _require(cfg, "uv_finish")
     tensors, sfx, stream = _lib.prepare(
         "uv_finish", [un, vn, Hz, Huon_old, Hvom_old, grid.umask,
                       grid.vmask, grid.on_u, grid.om_v, DU_avg1, DV_avg1,
                       DU_avg2, DV_avg2])
     N, Mj, Li = un.shape
-    _lib.require_depth("uv_finish", N)
-    if any(x.shape != un.shape for x in (vn, Hz, Huon_old, Hvom_old)) or \
+    if N < 1 or any(x.shape != un.shape
+                    for x in (vn, Hz, Huon_old, Hvom_old)) or \
             (cfg.bc.ew_periodic and Li < 4):
         raise ValueError("uv_finish: inconsistent shapes")
+    threads, _, smem = finish_launch_shape(N, Mj, Li, un.element_size())
+    if smem > _lib.SMEM_PER_BLOCK:
+        raise ValueError(f"uv_finish: {N} levels need {smem} B of shared "
+                         "memory a block, more than the card's 227 KB")
     outs = [torch.empty_like(un), torch.empty_like(vn),
             torch.empty_like(DU_avg1), torch.empty_like(DV_avg1),
             torch.empty_like(un), torch.empty_like(vn)]
     P, I = _lib.P, _lib.I
-    fn = _lib.func(f"roms_uv_finish_{sfx}", [P] * 19 + [I] * 4 + [P])
+    fn = _lib.func(f"roms_uv_finish_{sfx}", [P] * 19 + [I] * 5 + [P])
     rc = fn(*[_lib.ptr(x) for x in tensors + outs], N, Mj, Li,
-            int(cfg.bc.ew_periodic), P(stream))
+            int(cfg.bc.ew_periodic), threads, P(stream))
     _lib.launches["uv_finish"] += 1
     _lib.check(rc, "uv_finish")
     return tuple(outs)

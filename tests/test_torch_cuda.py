@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
 from roms_tpu_torch.ops import (  # noqa: E402
-    _lib, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, vdiff)
+    _lib, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, uvmix, vdiff)
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
@@ -462,4 +462,64 @@ def test_column_sweeps_raise_over_shared_memory():
         with pytest.raises(ValueError, match=name):
             call(*args)
         before[name] += 1
+    assert _lib.launches == before
+
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_uv_finish_at_ragged_and_minimal_shapes(dtype):
+    """Kernel 5's uv_finish (uv_solve's column sweep, its state in shared
+    memory) bitwise equal to its plain version at N = 3 and 4 and ragged
+    grids, closed and EW-periodic (the periodic flux lanes); one launch a
+    call."""
+    _need_card()
+    for app, shape in cs.REDESIGN_SHAPES:
+        env = cs.setup(torch, *shape, dtype, app=app)
+        args, _ = cs.entry_inputs(torch, "uv_finish", *env, 5)
+        for closed in (False, True):
+            if closed:
+                args = (_closed(args[0]),) + args[1:]
+            before = _lib.launches["uv_finish"]
+            rel, _ = cs.compare(torch, "uv_finish", args, dtype)
+            assert rel == 0.0, (app, shape, closed, dtype, rel)
+            assert _lib.launches["uv_finish"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_uvmix_at_ragged_and_minimal_shapes(dtype):
+    """Kernel 10 (each stress formed once a level on a k-marching tile in
+    shared memory) bitwise equal to its plain version on EW-periodic
+    channels: ragged grids, Li = 4 and N = 2; one launch a call."""
+    _need_card()
+    for app, shape in cs.PRSGRD_SHAPES:
+        env = cs.setup(torch, *shape, dtype, app=app)
+        args, _ = cs.entry_inputs(torch, "uv3dmix2_s", *env, 5)
+        before = _lib.launches["uv3dmix2_s"]
+        rel, _ = cs.compare(torch, "uv3dmix2_s", args, dtype)
+        assert rel == 0.0, (app, shape, dtype, rel)
+        assert _lib.launches["uv3dmix2_s"] == before + 1
+
+
+def test_uv_finish_and_uvmix_raise_over_shared_memory(monkeypatch):
+    """float64 launches over a block's 227 KB raise before launching:
+    uv_finish at the shallowest such depth (one level less launches), and
+    uvmix with a (64, 128) tile."""
+    _need_card()
+    before = dict(_lib.launches)
+    N = 2
+    while uv.finish_launch_shape(N, 10, 12, 8)[2] <= _lib.SMEM_PER_BLOCK:
+        N += 1
+    env = cs.setup(torch, 10, 8, N - 1, "float64", app="upwelling")
+    args, _ = cs.entry_inputs(torch, "uv_finish", *env, 5)
+    uv.uv_finish(*args)
+    env = cs.setup(torch, 10, 8, N, "float64", app="upwelling")
+    args, _ = cs.entry_inputs(torch, "uv_finish", *env, 5)
+    with pytest.raises(ValueError, match="uv_finish"):
+        uv.uv_finish(*args)
+    before["uv_finish"] += 1
+    env = cs.setup(torch, 126, 62, 3, "float64", app="upwelling")
+    args, _ = cs.entry_inputs(torch, "uv3dmix2_s", *env, 5)
+    monkeypatch.setattr(uvmix, "TILE", (64, 128))
+    with pytest.raises(ValueError, match="uv3dmix2_s"):
+        uvmix.uv3dmix2_s(*args)
     assert _lib.launches == before

@@ -1,6 +1,7 @@
-"""Launch shapes of kernels 2 (tadv), 3 (rhs3d), 4 (uv_solve), 6
-(spline_vdiff), 9 (prsgrd32), 11 (the resident fast loop), 14 and 15
-(the KPP and prep column) and 16 (rot_div_geo) on the CPU: the tiles
+"""Launch shapes of kernels 2 (tadv), 3 (rhs3d), 4 and 5 (uv_solve,
+uv_finish), 6 (spline_vdiff), 9 (prsgrd32), 10 (uv3dmix2_s), 11 (the
+resident fast loop), 14 and 15 (the KPP and prep column) and 16
+(rot_div_geo) on the CPU: the tiles
 cover the grid, kernel 11's halo, and the dynamic shared memory each
 element size asks for against the H100's 227 KB a block and 228 KB an
 SM.  The kernels themselves need the card: tests/test_torch_cuda.py."""
@@ -8,7 +9,7 @@ SM.  The kernels themselves need the card: tests/test_torch_cuda.py."""
 import pytest
 
 from roms_tpu_torch.ops import (_lib, hmix, kpp, prsgrd, rhs3d, step2d, tadv,
-                                uv, vdiff)
+                                uv, uvmix, vdiff)
 
 # shared memory of one SM of the H100, 1 KB of it reserved per block
 SMEM_PER_SM = 233472
@@ -271,3 +272,84 @@ def test_column_sweeps_deep_float64_column_exceeds_shared_memory():
     assert vdiff.vdiff_launch_shape(200, 2, 23, 14, 8)[2] > \
         _lib.SMEM_PER_BLOCK
     assert kpp.prep_launch_shape(200, 23, 14, 8)[2] > _lib.SMEM_PER_BLOCK
+
+
+
+def test_seam_tiles_hold_the_periodic_seam():
+    """The tiled kernels' shared tiling (ops/_lib.py seam_tiles) covers the
+    grid with as few tiles as will do, and the tile that the half-tile
+    shift puts on the seam holds lanes Li-2, Li-1, 0 and 1."""
+    for Mj, Li in [s for s in SHAPES if s[1] >= 4]:
+        TJ, TI, blocks = _lib.seam_tiles(Mj, Li, (7, 31))
+        assert blocks == -(-Mj // TJ) * -(-Li // TI)
+        seam = {(i - TI // 2) % Li for i in range(min(TI, Li))}
+        assert {Li - 2, Li - 1, 0, 1} <= seam, (Mj, Li)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_uv_finish_launch_shape(itemsize):
+    """Kernel 5's uv_finish: two blocks (u and v) per range of columns,
+    hz*scale and q (2 N values a thread) in shared memory, within a
+    block's 227 KB up to 64 levels in either type."""
+    for N in (1, 3, 16, 30, 64):
+        for Mj, Li in SHAPES:
+            B, blocks, smem = uv.finish_launch_shape(N, Mj, Li, itemsize)
+            assert B == uv.FINISH_THREADS[itemsize] and B % 32 == 0
+            assert blocks == 2 * -(-(Mj * Li) // B)
+            assert smem == itemsize * 2 * N * B
+            assert smem <= _lib.SMEM_PER_BLOCK
+
+
+def test_uv_finish_fills_the_card_in_float32():
+    """At both full-width shapes and depths the float32 sweep launches
+    many waves, and at least two blocks fit an SM's shared memory."""
+    for shape, N in [(FULL[0], 30), (FULL[1], 16)]:
+        B, blocks, smem = uv.finish_launch_shape(N, *shape, 4)
+        assert blocks >= 10 * SMS
+        assert 2 * (smem + 1024) <= SMEM_PER_SM
+
+
+def test_uv_finish_deep_float64_column_exceeds_shared_memory():
+    """A float64 column of 228 levels or more needs more than a block's
+    227 KB (the wrapper raises on it before launching); 227 fit."""
+    assert uv.finish_launch_shape(227, 23, 14, 8)[2] <= _lib.SMEM_PER_BLOCK
+    assert uv.finish_launch_shape(228, 23, 14, 8)[2] > _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_uvmix_launch_shape(itemsize):
+    """Kernel 10's tiles cover the grid with as few tiles of TILE as will
+    do (at least five lanes); the tile grown by a row and a lane has a
+    thread a position; its window has a one-point halo and fits a
+    block."""
+    tile = uvmix.TILE
+    for Mj, Li in [s for s in SHAPES if s[1] >= 4]:
+        TJ, TI, blocks, smem = uvmix.launch_shape(Mj, Li, itemsize)
+        assert blocks == -(-Mj // TJ) * -(-Li // TI)
+        assert TJ <= tile[0] and min(Li, 5) <= TI <= max(tile[1], 5)
+        if TI >= 5:
+            assert -(-Mj // TJ) == -(-Mj // tile[0])
+            assert -(-Li // TI) == -(-Li // tile[1])
+        assert (TJ + 1) * (TI + 1) <= uvmix.THREADS and uvmix.HALO == 1
+        WJ, WI = TJ + 2, TI + 2
+        assert smem == itemsize * uvmix.WINDOW_PLANES * WJ * WI \
+            + 4 * (WJ + 2 * WI + WJ * WI)
+        assert smem <= _lib.SMEM_PER_BLOCK
+
+
+def test_uvmix_fills_the_card():
+    """At both full-width shapes kernel 10 launches more than one full
+    wave of four blocks an SM, and four windows fit an SM's shared memory,
+    in float32 and float64."""
+    for shape in FULL:
+        for itemsize in (4, 8):
+            *_, blocks, smem = uvmix.launch_shape(*shape, itemsize)
+            assert blocks >= 4 * SMS
+            assert 4 * (smem + 1024) <= SMEM_PER_SM
+
+
+def test_uvmix_tile_over_shared_memory_is_counted(monkeypatch):
+    """A float64 tile whose window exceeds a block's 227 KB shows in the
+    launch shape (the wrapper raises on it before launching)."""
+    monkeypatch.setattr(uvmix, "TILE", (64, 128))
+    assert uvmix.launch_shape(258, 2050, 8)[3] > _lib.SMEM_PER_BLOCK
