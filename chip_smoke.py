@@ -6,15 +6,16 @@
                                      # time goes (CUDA events, profiler),
                                      # the fast loop's by 2D term and
                                      # rhs3d's, uv_solve's, uv_finish's,
-                                     # tadv's, prsgrd's, uvmix's, prep's
-                                     # and spline_vdiff's time by launch
-                                     # shape
+                                     # tadv's, prsgrd's, uvmix's, prep's,
+                                     # spline_vdiff's, flux_omega's and
+                                     # tridiag's time by launch shape
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
      roms_tpu_torch/csrc (one nvcc per source, all started together),
      the registers and stack frame of the column sweeps (kernels 5, 6,
-     14 and 15) and of the uvmix tile (kernel 10);
+     14, 15 and 17) and of the uvmix and flux_omega tiles (kernels 10
+     and 7);
   2. kernel phase: each kernel entry point against its plain PyTorch
      version on the card, same inputs, float64 (rel <= 1e-12; the fast
      loop, 2 x 42 substeps, 1e-11) and float32 (rel <= 1e-5), on seeded
@@ -38,14 +39,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      EW-periodic, tadv's predictor and uv_solve from iic 0, 1 and 5,
      uv_finish (kernel 5) on the same grids, the redesigned prsgrd and
      uvmix (kernels 9 and 10) on ragged and 4-lane channels down to
-     N = 2, the column sweeps of prep, KPP alone and spline_vdiff
+     N = 2, the redesigned flux_omega (kernel 7) on the same channels, on
+     4- and 5-lane channels of Mj = 4 down to N = 1 and on Mj = 43 (a
+     last row tile of one row), the redesigned tridiagonal solve (kernel
+     17) on seeded systems of 1, 2, 15, 30 and 128 levels (kernels 7 and
+     17 bitwise or fail), the column sweeps of prep, KPP alone and spline_vdiff
      (kernels 15, 14 and 6) on the same grids and at N = 2 on a 4-lane
      channel, KPP's boundary layer column by column with a statically
      unstable column every other one, spline_vdiff at one, two and five
      tracers with one or two Akt profiles and bitwise, each redesign line
      saying whether it is bitwise, and the float64 launches over a
      block's shared memory refused (the tiled kernels with a (64, 128)
-     tile, the column sweeps at the shallowest depth over it);
+     tile, the column sweeps and flux_omega's running sums at the
+     shallowest depth over it);
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
@@ -132,7 +138,7 @@ def main():
           f"(nvcc {_lib.build_seconds:.1f} s)", flush=True)
     print(_lib.ptxas_report(), flush=True)
     ptxas_summary(("kpp_kernel", "vdiff_kernel", "uv_finish_kernel",
-                   "uvmix_kernel"))
+                   "uvmix_kernel", "flux_omega_kernel", "tridiag_kernel"))
     _lib.lib()
 
     full = [app for app in APPS if APPS[app]["full"]]
@@ -654,6 +660,16 @@ REDESIGN_SHAPES = [("upwelling", (37, 19, 3)), ("benchmark", (45, 19, 4)),
 # is EW-periodic) and N = 2 on a 4-lane and a ragged grid
 PRSGRD_SHAPES = [s for s in REDESIGN_SHAPES if s[0] != "double_gyre"] + [
     ("upwelling", (2, 3, 2)), ("benchmark", (45, 19, 2))]
+# kernel 7's shapes: PRSGRD_SHAPES, a 4-lane channel of Mj = 4, a 5-lane
+# channel of Mj = 4 and N = 1, and Mj = 43, whose last row tile of
+# ops/flux.py TILE has one row
+FLUX_SHAPES = PRSGRD_SHAPES + [("upwelling", (2, 2, 2)),
+                               ("upwelling", (3, 2, 1)),
+                               ("upwelling", (37, 41, 3))]
+# kernel 17's seeded systems: depths 1, 2, the closures' 15, 30 and the
+# class's 128 on (Mj, Li) planes whose column counts no block size divides
+TRIDIAG_DEPTHS = (1, 2, 15, 30, 128)
+TRIDIAG_PLANES = ((13, 41), (21, 47))
 # kernel 2's tracer counts: one, the apps' two, and five (three groups of
 # csrc/tadv.cu's two tracers a block, the last with one)
 TADV_NT = (1, 2, 5)
@@ -730,12 +746,14 @@ def redesign_checks(torch):
     """Kernels 2, 3, 4 and 5 at REDESIGN_SHAPES with the app's lanes and
     with closed walls, tadv's predictor and uv_solve from iic 0, 1 and 5,
     tadv at one, two and five tracers; kernels 9 and 10 at PRSGRD_SHAPES;
+    kernel 7 at FLUX_SHAPES and kernel 17 on seeded systems of
+    TRIDIAG_DEPTHS (both bitwise);
     kernels 6, 14 and 15 at COLUMN_SHAPES (spline_vdiff at VDIFF_TRACERS,
     bitwise; KPP's boundary layer column by column, both forcing regimes
     and columns with and without a crossing); kernel 12 on 4-lane
     channels; the float64 launches over shared memory refused."""
-    from roms_tpu_torch.ops import (_lib, kpp, prsgrd, rhs3d, tadv, uv, uvmix,
-                                    vdiff)
+    from roms_tpu_torch.ops import (_lib, flux, kpp, prsgrd, rhs3d, tadv, uv,
+                                    uvmix, vdiff)
     for app, (Lm, Mm, N) in REDESIGN_SHAPES:
         for dtype in ("float64", "float32"):
             env = setup(torch, Lm, Mm, N, dtype, app=app)
@@ -756,6 +774,31 @@ def redesign_checks(torch):
                       f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
                       f"abs {abs_err:.3e} {bitwise(rel)}", flush=True)
             del env
+    for app, (Lm, Mm, N) in FLUX_SHAPES:
+        for dtype in ("float64", "float32"):
+            env = setup(torch, Lm, Mm, N, dtype, app=app)
+            args, _ = entry_inputs(torch, "flux_omega", *env, 5)
+            rel, abs_err = compare(torch, "flux_omega", args, dtype)
+            print(f"kernel redesign {app:11s} flux_omega      {dtype} app    "
+                  f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
+                  f"abs {abs_err:.3e} {bitwise(rel)}", flush=True)
+            if rel:
+                FAILURES.append(f"flux_omega {dtype} {app} N={N} Mj={Mm + 2}"
+                                f" Li={Lm + 2}: max rel {rel:.3e}, not "
+                                "bitwise equal to its plain version")
+            del env
+    for N in TRIDIAG_DEPTHS:
+        for dtype in ("float64", "float32"):
+            for Mj, Li in TRIDIAG_PLANES:
+                args = tridiag_system(torch, N, Mj, Li, dtype)
+                rel, abs_err = compare(torch, "tridiag", args, dtype)
+                print(f"kernel redesign seeded     tridiag         {dtype} "
+                      f"N={N} Mj={Mj} Li={Li}: max rel {rel:.3e} max abs "
+                      f"{abs_err:.3e} {bitwise(rel)}", flush=True)
+                if rel:
+                    FAILURES.append(f"tridiag {dtype} N={N} Mj={Mj} Li={Li}: "
+                                    f"max rel {rel:.3e}, not bitwise equal "
+                                    "to its plain version")
     for app, (Lm, Mm, N) in COLUMN_SHAPES:
         for dtype in ("float64", "float32"):
             env = setup(torch, Lm, Mm, N, dtype, app=app)
@@ -832,6 +875,12 @@ def redesign_checks(torch):
         env = setup(torch, 10, 8, N, "float64", app="benchmark")
         deep, _ = entry_inputs(torch, name, *env, 5)
         refusals.append((f"{name} N={N}", lambda c=call, a=deep: c(*a)))
+    # flux_omega's running sums at the shallowest float64 depth over a
+    # block's shared memory, on a grid of two 7 x 31 tiles
+    N = flux_refused_depth(14, 31)
+    env = setup(torch, 29, 12, N, "float64", app="benchmark")
+    deep, _ = entry_inputs(torch, "flux_omega", *env, 5)
+    refusals.append((f"flux_omega N={N}", lambda a=deep: flux.flux_omega(*a)))
     for what, call in refusals:
         try:
             call()
@@ -840,6 +889,30 @@ def redesign_checks(torch):
         else:
             FAILURES.append(f"{what} float64: launched over shared memory")
     del env
+
+
+def flux_refused_depth(Mj, Li):
+    """The shallowest depth whose float64 flux_omega launch on an (Mj, Li)
+    grid needs more shared memory than a block has."""
+    from roms_tpu_torch.ops import _lib, flux
+    N = 1
+    while flux.launch_shape(N, Mj, Li, 8)[3] <= _lib.SMEM_PER_BLOCK:
+        N += 1
+    return N
+
+
+def tridiag_system(torch, N, Mj, Li, dtype, seed=11):
+    """Seeded diagonally dominant tridiagonal systems (lower, diag, upper,
+    rhs) of N levels on an (Mj, Li) plane, made on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shp = (N, Mj, Li)
+
+    def rnd():
+        return torch.randn(shp, generator=gen, device=DEVICE,
+                           dtype=getattr(torch, dtype))
+    lower, upper = 0.5 * rnd(), 0.5 * rnd()
+    diag = 2.0 + lower.abs() + upper.abs() + rnd().abs()
+    return lower, diag, upper, rnd()
 
 
 def engine_diff(torch, args):
@@ -1282,6 +1355,23 @@ def kernel_table(torch, app, counts):
             print(f"{app} {name} {B} threads a block, {blocks} blocks (u "
                   f"and v), {smem} B dynamic shared memory a block "
                   f"({vals} values a thread)", flush=True)
+        if name == "flux_omega":
+            from roms_tpu_torch.ops import flux
+            N, Mj, Li = outs[0].shape
+            TJ, TI, blocks, smem = flux.launch_shape(
+                N, Mj, Li, outs[0].element_size())
+            win = (TJ + 2) * (TI + 2) / (TJ * TI)
+            print(f"{app} flux_omega tile {TJ}x{TI}, {blocks} blocks, {smem} "
+                  f"B dynamic shared memory a block ({N - 1} levels of "
+                  f"running sums); Hz window {win:.3f}x the tile (halo from "
+                  f"L2)", flush=True)
+        if name == "tridiag":
+            from roms_tpu_torch.ops import tridiag
+            B, blocks, smem = tridiag.launch_shape(
+                *outs[0].shape, outs[0].element_size())
+            print(f"{app} tridiag {B} threads a block, {blocks} blocks, "
+                  f"{smem} B dynamic shared memory a block (cp and dp, "
+                  f"{2 * outs[0].shape[0]} values a thread)", flush=True)
         if name == "uv3dmix2_s":
             from roms_tpu_torch.ops import uvmix
             TJ, TI, blocks, smem = uvmix.launch_shape(
@@ -1348,7 +1438,8 @@ def fast_loop_terms(torch, app):
 # the launch shapes timed against the chosen ones (ops/rhs3d.py TILE,
 # ops/uv.py SOLVE_THREADS and FINISH_THREADS, ops/tadv.py TILE,
 # ops/prsgrd.py TILE, ops/uvmix.py TILE, ops/kpp.py PREP_THREADS,
-# ops/vdiff.py VDIFF_THREADS)
+# ops/vdiff.py VDIFF_THREADS, ops/flux.py TILE, ops/tridiag.py THREADS;
+# tridiag at the GLS/MY2.5 solves' shape, with the UPWELLING app)
 RHS3D_TILES = ((8, 32), (16, 16), (4, 64), (8, 16))
 UV_SOLVE_THREADS = (64, 96, 128, 192)
 UV_FINISH_THREADS = (64, 96, 128, 192, 256)
@@ -1357,6 +1448,8 @@ TADV_TILES = ((7, 31), (8, 32), (15, 15), (16, 16), (4, 64))
 PRSGRD_TILES = ((7, 31), (15, 15), (3, 63), (7, 15), (3, 31))
 PREP_THREADS_TRIED = (32, 64, 96, 128)
 VDIFF_THREADS_TRIED = (64, 96, 128, 192, 256)
+FLUX_TILES = ((7, 31), (15, 15), (3, 63), (7, 15))
+TRIDIAG_THREADS_TRIED = (64, 128, 192, 256)
 
 
 def launch_shapes(torch, app):
@@ -1365,9 +1458,12 @@ def launch_shapes(torch, app):
     of UV_SOLVE_THREADS and UV_FINISH_THREADS, tadv's (both modes) with
     each of TADV_TILES, prsgrd's and uvmix's with each of PRSGRD_TILES
     and UVMIX_TILES, and prep's and spline_vdiff's with each block size of
-    PREP_THREADS_TRIED and VDIFF_THREADS_TRIED at the app's full width,
-    float32, each output bitwise against the chosen shape's."""
-    from roms_tpu_torch.ops import kpp, prsgrd, rhs3d, tadv, uv, uvmix, vdiff
+    PREP_THREADS_TRIED and VDIFF_THREADS_TRIED, flux_omega's with each of
+    FLUX_TILES and tridiag's with each block size of TRIDIAG_THREADS_TRIED
+    at the app's full width, float32, each output bitwise against the
+    chosen shape's."""
+    from roms_tpu_torch.ops import (flux, kpp, prsgrd, rhs3d, tadv, tridiag,
+                                    uv, uvmix, vdiff)
 
     def tile_of(mod):
         return lambda: mod.TILE, lambda x: setattr(mod, "TILE", x)
@@ -1386,8 +1482,12 @@ def launch_shapes(torch, app):
              lambda x: kpp.PREP_THREADS.__setitem__(4, x)),
             ("spline_vdiff", VDIFF_THREADS_TRIED,
              lambda: vdiff.VDIFF_THREADS[4],
-             lambda x: vdiff.VDIFF_THREADS.__setitem__(4, x))):
-        if name not in APPS[app]["entries"]:
+             lambda x: vdiff.VDIFF_THREADS.__setitem__(4, x)),
+            ("flux_omega", FLUX_TILES, *tile_of(flux)),
+            ("tridiag", TRIDIAG_THREADS_TRIED, lambda: tridiag.THREADS[4],
+             lambda x: tridiag.THREADS.__setitem__(4, x))):
+        if name not in APPS[app]["entries"] and not (
+                name == "tridiag" and app == "upwelling"):
             continue
         args, _ = entry_inputs(torch, name, *env, 5)
         kern = entry_fns(name)[0]
@@ -1420,8 +1520,8 @@ def launch_shapes(torch, app):
 def profile_step(torch, app):
     """Breakdown of one full-width float32 step of `app`: the fast
     barotropic loop vs the rest (CUDA events over 3 steps), then
-    torch.profiler's device time by kernel over one step and the device's
-    idle share."""
+    torch.profiler's device time by kernel over one step (after a
+    warm-up step under the profiler) and the device's idle share."""
     Lm, Mm, N = APPS[app]["full"]
     model, s = make_model(torch, app, Lm, Mm, N, "float32", True,
                           APPS[app]["dt"], False)
@@ -1453,17 +1553,27 @@ def profile_step(torch, app):
           flush=True)
     model.fast_loop = inner
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the tracer drops the first kernel it sees (each step's flux_omega
+    # went unrecorded), so a warm-up step runs under it first and only
+    # the second step is recorded
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
         s = model.step(s)
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof.step()
+        t0 = time.perf_counter()
+        s = model.step(s)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device rows, without the schedule's ProfilerStep annotation (its
+    # device span is the whole step)
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) is not None
-            and str(e.device_type).endswith("CUDA")]
+            and str(e.device_type).endswith("CUDA")
+            and not e.key.startswith("ProfilerStep")]
     busy_us = sum(e.self_device_time_total for e in rows)
     launches = sum(e.count for e in rows)
     # the profiler slows the host, so the idle share is taken against
@@ -1477,7 +1587,7 @@ def profile_step(torch, app):
         "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
         "prsgrd_kernel", "uvmix_kernel", "half_step", "bulk_kernel",
         "kpp_kernel", "rot_div_geo_kernel", "tridiag_kernel",
-        "blocked_kernel"))]
+        "blocked_kernel", "omega_kernel"))]
     ours_us = sum(e.self_device_time_total for e in ours)
     print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "
           f"time in {sum(e.count for e in ours)} launches", flush=True)

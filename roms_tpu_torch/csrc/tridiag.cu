@@ -16,41 +16,87 @@
 //
 // Design: one thread per (j, i) column, i fastest, so every level's
 // loads and stores are coalesced (levels lie Mj*Li apart).  The forward
-// sweep writes dp straight into the output and keeps cp in a per-thread
-// array bounded by kNmax = 128, roms_tpu's own depth bound for the
-// kernel (ops/tridiag.py NMAX); the array lives in local memory, which
-// the back substitution reads again from L1/L2.
+// sweep keeps the four loads of the next kAhead levels in flight in a
+// ring of registers while level k's dependent division chain runs, and
+// keeps cp and dp in dynamic shared memory laid out [k][thread]; the back
+// substitution reads them from there and writes each x once.  No local
+// array, so no stack frame, and no fixed depth bound: the wrapper sizes
+// the block by N and the element size (ops/tridiag.py launch_shape), and
+// a launch whose 2 N values a thread do not fit a block's shared memory
+// is refused (roms::allow_smem).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTridiagNmax = 128;
+using roms::mul_rn;
+
+constexpr int kThreadsTridiag = 256;   // the most threads a block
+constexpr int kAhead = 4;   // levels in flight ahead of the one eliminated
 
 template <typename T>
-__global__ void tridiag_kernel(const T* __restrict__ lower,
-                               const T* __restrict__ diag,
-                               const T* __restrict__ upper,
-                               const T* __restrict__ rhs,
-                               T* __restrict__ out, int N, int P) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= P) return;
-  T cp[kTridiagNmax];
-  T cp_prev = T(0), dp_prev = T(0);
-  for (int k = 0; k < N; ++k) {
+__global__ void __launch_bounds__(kThreadsTridiag)
+tridiag_kernel(const T* __restrict__ lower, const T* __restrict__ diag,
+               const T* __restrict__ upper, const T* __restrict__ rhs,
+               T* __restrict__ out, int N, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = blockDim.x;
+  const int c = blockIdx.x * B + threadIdx.x;
+  if (c >= P) return;   // no barrier below: each thread owns its slots
+  T* cp_s = reinterpret_cast<T*>(smem) + threadIdx.x;
+  T* dp_s = cp_s + static_cast<size_t>(N) * B;
+
+  // the raw values of levels k+1 .. k+kAhead are in flight while level k
+  // is eliminated (slot u of each unrolled group of kAhead levels)
+  T ra[kAhead], rb[kAhead], rc[kAhead], rr[kAhead];
+  auto fetch = [&](int k, int u) {
     const size_t at = static_cast<size_t>(k) * P + c;
-    const T a = lower[at];
-    const T denom = T(1.0) / (diag[at] - roms::mul_rn(a, cp_prev));
-    cp_prev = upper[at] * denom;
-    dp_prev = (rhs[at] - roms::mul_rn(a, dp_prev)) * denom;
-    cp[k] = cp_prev;
-    out[at] = dp_prev;
+    ra[u] = lower[at];
+    rb[u] = diag[at];
+    rc[u] = upper[at];
+    rr[u] = rhs[at];
+  };
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u)
+    if (u < N) fetch(u, u);
+  T cpp = T(0), dpp = T(0);
+  for (int k0 = 0; k0 < N; k0 += kAhead) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int k = k0 + u;
+      if (k >= N) break;
+      const T a = ra[u], b = rb[u], up = rc[u], r = rr[u];
+      if (k + kAhead < N) fetch(k + kAhead, u);
+      const T denom = T(1.0) / (b - mul_rn(a, cpp));
+      cpp = up * denom;
+      dpp = (r - mul_rn(a, dpp)) * denom;
+      cp_s[static_cast<size_t>(k) * B] = cpp;
+      dp_s[static_cast<size_t>(k) * B] = dpp;
+    }
   }
-  T x_next = T(0);
+  T x = T(0);
   for (int k = N - 1; k >= 0; --k) {
-    const size_t at = static_cast<size_t>(k) * P + c;
-    x_next = out[at] - roms::mul_rn(cp[k], x_next);
-    out[at] = x_next;
+    const size_t m = static_cast<size_t>(k) * B;
+    x = dp_s[m] - mul_rn(cp_s[m], x);
+    out[static_cast<size_t>(k) * P + c] = x;
   }
+}
+
+template <typename T>
+int launch(const void* lower, const void* diag, const void* upper,
+           const void* rhs, void* out, int N, int Mj, int Li, int threads,
+           void* stream) {
+  if (N < 1 || threads < 1 || threads > kThreadsTridiag)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int P = Mj * Li;
+  const size_t smem = sizeof(T) * 2 * static_cast<size_t>(N) * threads;
+  const cudaError_t err = roms::allow_smem(tridiag_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tridiag_kernel<T><<<(P + threads - 1) / threads, threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(lower), static_cast<const T*>(diag),
+      static_cast<const T*>(upper), static_cast<const T*>(rhs),
+      static_cast<T*>(out), N, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -58,14 +104,9 @@ __global__ void tridiag_kernel(const T* __restrict__ lower,
 #define ROMS_TRIDIAG_ENTRY(NAME, T)                                          \
   extern "C" int NAME(const void* lower, const void* diag,                   \
                       const void* upper, const void* rhs, void* out, int N,  \
-                      int Mj, int Li, void* stream) {                        \
-    if (N < 1 || N > kTridiagNmax) return (int)cudaErrorInvalidValue;        \
-    const int P = Mj * Li;                                                   \
-    tridiag_kernel<T><<<roms::blocks_for(P), roms::kThreads, 0,              \
-                        (cudaStream_t)stream>>>(                             \
-        (const T*)lower, (const T*)diag, (const T*)upper, (const T*)rhs,     \
-        (T*)out, N, P);                                                      \
-    return (int)cudaGetLastError();                                          \
+                      int Mj, int Li, int threads, void* stream) {           \
+    return launch<T>(lower, diag, upper, rhs, out, N, Mj, Li, threads,       \
+                     stream);                                                \
   }
 
 ROMS_TRIDIAG_ENTRY(roms_tridiag_f32, float)

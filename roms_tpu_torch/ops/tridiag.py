@@ -7,6 +7,9 @@ roms_tpu's dispatcher (roms_tpu/ops/tridiag.py:32-57) runs for every
 four times a step (core/gls.py, core/my25.py).  Arrays are [k, ...]
 with k axis 0.
 
+The kernel runs one thread a (j, i) column, its cp and dp in shared
+memory, with blocks sized by N and the element size (`launch_shape`).
+
 `tridiag_plain` is the plain PyTorch Thomas sweep over whole horizontal
 planes, with the Pallas kernel's association (_thomas_kernel,
 pallas_tridiag.py:33-57).  `spline_flux_solve` stays on it: it is the
@@ -22,8 +25,24 @@ import torch
 from . import _lib
 
 # roms_tpu's call-site bound on the depth of a kernel solve
-# (roms_tpu/ops/tridiag.py:55); csrc/tridiag.cu kNmax
+# (roms_tpu/ops/tridiag.py:55): the class the kernel takes, which fits a
+# block's shared memory in either type (launch_shape)
 NMAX = 128
+
+# the most threads a block (csrc/tridiag.cu kThreadsTridiag), by element
+# size; fewer where a column's cp and dp (2 N values a thread, in shared
+# memory) would not fit a block
+THREADS = {4: 256, 8: 128}
+
+
+def launch_shape(N: int, Mj: int, Li: int, itemsize: int):
+    """(threads, blocks, dynamic shared memory bytes) of the kernel's
+    launch: THREADS[itemsize], cut to a multiple of 32 whose cp and dp fit
+    a block's shared memory (96 threads for 128 float64 levels); past a
+    warp's fit the kernel refuses the launch."""
+    B = max(32, min(THREADS[itemsize],
+                    _lib.SMEM_PER_BLOCK // (2 * N * itemsize) // 32 * 32))
+    return B, -(-(Mj * Li) // B), itemsize * 2 * N * B
 
 
 def covers(rhs) -> bool:
@@ -67,15 +86,20 @@ def tridiag_solve(lower, diag, upper, rhs, use_kernels: bool = True):
                          f"is not 3-D with at most {NMAX} levels")
     (lower, diag, upper, rhs), sfx, stream = _lib.prepare(
         "tridiag", [lower, diag, upper, rhs])
+    return _launch(sfx, stream, lower, diag, upper, rhs)
+
+
+def _launch(sfx, stream, lower, diag, upper, rhs):
     N, Mj, Li = rhs.shape
     for t in (lower, diag, upper):
         if t.shape != rhs.shape:
             raise ValueError("tridiag: inconsistent shapes")
+    B = launch_shape(N, Mj, Li, rhs.element_size())[0]
     out = torch.empty_like(rhs)
     P, I = _lib.P, _lib.I
-    fn = _lib.func(f"roms_tridiag_{sfx}", [P] * 5 + [I] * 3 + [P])
+    fn = _lib.func(f"roms_tridiag_{sfx}", [P] * 5 + [I] * 4 + [P])
     rc = fn(*[_lib.ptr(x) for x in (lower, diag, upper, rhs, out)],
-            N, Mj, Li, P(stream))
+            N, Mj, Li, B, P(stream))
     _lib.launches["tridiag"] += 1
     _lib.check(rc, "tridiag")
     return out

@@ -21,7 +21,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
 from roms_tpu_torch.ops import (  # noqa: E402
-    _lib, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, uvmix, vdiff)
+    _lib, flux, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, uvmix,
+    vdiff)
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
 # EW-periodic UPWELLING channel, the fourteen of the BENCHMARK full
@@ -523,3 +524,41 @@ def test_uv_finish_and_uvmix_raise_over_shared_memory(monkeypatch):
     with pytest.raises(ValueError, match="uv3dmix2_s"):
         uvmix.uv3dmix2_s(*args)
     assert _lib.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_flux_omega_and_tridiag_at_ragged_and_minimal_shapes(dtype):
+    """Kernel 7 (each mass flux formed once a level on a k-marching tile,
+    the running sums in shared memory) bitwise equal to its plain version
+    on ragged, 4- and 5-lane channels, Mj = 4, N = 1 and 2 and a last row
+    tile of one row; kernel 17 (cp and dp in shared memory) bitwise on
+    seeded systems of 1 to 128 levels; one launch a call.  In float64 a
+    flux_omega launch over a block's 227 KB raises before launching (one
+    level less launches)."""
+    _need_card()
+    for app, shape in cs.FLUX_SHAPES:
+        env = cs.setup(torch, *shape, dtype, app=app)
+        args, _ = cs.entry_inputs(torch, "flux_omega", *env, 5)
+        before = _lib.launches["flux_omega"]
+        rel, _ = cs.compare(torch, "flux_omega", args, dtype)
+        assert rel == 0.0, (app, shape, dtype, rel)
+        assert _lib.launches["flux_omega"] == before + 1
+    for N in cs.TRIDIAG_DEPTHS:
+        for Mj, Li in cs.TRIDIAG_PLANES:
+            args = cs.tridiag_system(torch, N, Mj, Li, dtype)
+            before = _lib.launches["tridiag"]
+            rel, _ = cs.compare(torch, "tridiag", args, dtype)
+            assert rel == 0.0, (N, Mj, Li, dtype, rel)
+            assert _lib.launches["tridiag"] == before + 1
+    if dtype == "float64":
+        N = cs.flux_refused_depth(14, 31)
+        env = cs.setup(torch, 29, 12, N - 1, dtype, app="benchmark")
+        args, _ = cs.entry_inputs(torch, "flux_omega", *env, 5)
+        flux.flux_omega(*args)
+        env = cs.setup(torch, 29, 12, N, dtype, app="benchmark")
+        args, _ = cs.entry_inputs(torch, "flux_omega", *env, 5)
+        before = dict(_lib.launches)
+        with pytest.raises(ValueError, match="flux_omega"):
+            flux.flux_omega(*args)
+        assert _lib.launches == before
+

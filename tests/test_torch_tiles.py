@@ -1,15 +1,15 @@
 """Launch shapes of kernels 2 (tadv), 3 (rhs3d), 4 and 5 (uv_solve,
-uv_finish), 6 (spline_vdiff), 9 (prsgrd32), 10 (uv3dmix2_s), 11 (the
-resident fast loop), 14 and 15 (the KPP and prep column) and 16
-(rot_div_geo) on the CPU: the tiles
+uv_finish), 6 (spline_vdiff), 7 (flux_omega), 9 (prsgrd32), 10
+(uv3dmix2_s), 11 (the resident fast loop), 14 and 15 (the KPP and prep
+column), 16 (rot_div_geo) and 17 (tridiag) on the CPU: the tiles
 cover the grid, kernel 11's halo, and the dynamic shared memory each
 element size asks for against the H100's 227 KB a block and 228 KB an
 SM.  The kernels themselves need the card: tests/test_torch_cuda.py."""
 
 import pytest
 
-from roms_tpu_torch.ops import (_lib, hmix, kpp, prsgrd, rhs3d, step2d, tadv,
-                                uv, uvmix, vdiff)
+from roms_tpu_torch.ops import (_lib, flux, hmix, kpp, prsgrd, rhs3d, step2d,
+                                tadv, tridiag, uv, uvmix, vdiff)
 
 # shared memory of one SM of the H100, 1 KB of it reserved per block
 SMEM_PER_SM = 233472
@@ -353,3 +353,61 @@ def test_uvmix_tile_over_shared_memory_is_counted(monkeypatch):
     launch shape (the wrapper raises on it before launching)."""
     monkeypatch.setattr(uvmix, "TILE", (64, 128))
     assert uvmix.launch_shape(258, 2050, 8)[3] > _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_flux_omega_launch_shape(itemsize):
+    """Kernel 7's tiles cover the grid with as few tiles of TILE as will do
+    (at least five lanes) and the one the half-tile shift puts on the seam
+    holds lanes Li-2 .. 1; the tile grown by a row north and a lane east
+    has a thread a position; the staged windows and the running sums of
+    levels 0..N-2 fit a block up to 64 levels, and at BENCHMARK3's and
+    UPWELLING's depths six float32 blocks fit an SM; the shallowest depth
+    over a block is counted (the wrapper raises on it)."""
+    tile = flux.TILE
+    for Mj, Li in [s for s in SHAPES if min(s) >= 4]:
+        for N in (1, 2, 16, 30, 64):
+            TJ, TI, blocks, smem = flux.launch_shape(N, Mj, Li, itemsize)
+            assert blocks == -(-Mj // TJ) * -(-Li // TI)
+            assert TJ <= tile[0] and min(Li, 5) <= TI <= max(tile[1], 5)
+            if TI >= 5:
+                assert -(-Mj // TJ) == -(-Mj // tile[0])
+                assert -(-Li // TI) == -(-Li // tile[1])
+            seam = {(i - TI // 2) % Li for i in range(min(TI, Li))}
+            assert {Li - 2, Li - 1, 0, 1} <= seam, (Mj, Li)
+            assert (TJ + 1) * (TI + 1) <= flux.THREADS
+            nU, nV = TJ * (TI + 1), (TJ + 1) * TI
+            win = (TJ + 2) * (TI + 2) + nU + nV
+            assert smem == itemsize * (flux.STAGES * win + nU + nV
+                                       + (N - 1) * TJ * TI)
+            assert smem <= _lib.SMEM_PER_BLOCK
+    if itemsize == 4:
+        for shape, N in [(FULL[0], 30), (FULL[1], 16)]:
+            *_, blocks, smem = flux.launch_shape(N, *shape, 4)
+            assert blocks >= 6 * SMS
+            assert 6 * (smem + 1024) <= SMEM_PER_SM
+    N = 2
+    while flux.launch_shape(N, *FULL[0], itemsize)[3] <= _lib.SMEM_PER_BLOCK:
+        N += 1
+    assert N > 64 and flux.launch_shape(N, *FULL[0], itemsize)[3] > \
+        _lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_tridiag_launch_shape(itemsize):
+    """Kernel 17: one thread a column, cp and dp (2 N values a thread) in
+    shared memory; the block fits a block's 227 KB at every depth of the
+    class (N = 1..128) in either type, in whole warps; at the closures'
+    (15, 1026, 514) in float32 it launches full 256-thread blocks, many
+    waves of them, and seven fit an SM."""
+    for N in range(1, tridiag.NMAX + 1):
+        for Mj, Li in SHAPES:
+            B, blocks, smem = tridiag.launch_shape(N, Mj, Li, itemsize)
+            assert 32 <= B <= tridiag.THREADS[itemsize] and B % 32 == 0
+            assert blocks == -(-(Mj * Li) // B)
+            assert smem == itemsize * 2 * N * B <= _lib.SMEM_PER_BLOCK
+    if itemsize == 4:
+        B, blocks, smem = tridiag.launch_shape(15, *FULL[1], 4)
+        assert B == 256 and blocks >= 10 * SMS
+        assert 7 * (smem + 1024) <= SMEM_PER_SM
+
