@@ -7,15 +7,16 @@
                                      # the fast loop's by 2D term and
                                      # rhs3d's, uv_solve's, uv_finish's,
                                      # tadv's, prsgrd's, uvmix's, prep's,
-                                     # spline_vdiff's, flux_omega's and
-                                     # tridiag's time by launch shape
+                                     # spline_vdiff's, flux_omega's,
+                                     # omega's, tridiag's and bulk_flux's
+                                     # time by launch shape
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
      roms_tpu_torch/csrc (one nvcc per source, all started together),
      the registers and stack frame of the column sweeps (kernels 5, 6,
-     14, 15 and 17) and of the uvmix and flux_omega tiles (kernels 10
-     and 7);
+     14, 15 and 17), of the uvmix and flux_omega tiles (kernels 10, 7
+     and 8) and of the bulk-flux kernels (13);
   2. kernel phase: each kernel entry point against its plain PyTorch
      version on the card, same inputs, float64 (rel <= 1e-12; the fast
      loop, 2 x 42 substeps, 1e-11) and float32 (rel <= 1e-5), on seeded
@@ -41,17 +42,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      uvmix (kernels 9 and 10) on ragged and 4-lane channels down to
      N = 2, the redesigned flux_omega (kernel 7) on the same channels, on
      4- and 5-lane channels of Mj = 4 down to N = 1 and on Mj = 43 (a
-     last row tile of one row), the redesigned tridiagonal solve (kernel
-     17) on seeded systems of 1, 2, 15, 30 and 128 levels (kernels 7 and
-     17 bitwise or fail), the column sweeps of prep, KPP alone and spline_vdiff
-     (kernels 15, 14 and 6) on the same grids and at N = 2 on a 4-lane
+     last row tile of one row), omega (kernel 8) on the same grids, the
+     bulk fluxes (kernel 13) on BENCHMARK3's plane and on planes of Mj =
+     4, 5 and 43 (an odd Li) in both stability regimes, with cool skin,
+     COARE 3.5 and blk_zq other than blk_zt, one launch a call, the
+     redesigned tridiagonal solve (kernel 17) on seeded systems of 1, 2,
+     15, 30 and 128 levels (kernels 7, 8, 13 and 17 bitwise or fail),
+     the column sweeps of prep, KPP alone and spline_vdiff (kernels 15,
+     14 and 6) on the same grids and at N = 2 on a 4-lane
      channel, KPP's boundary layer column by column with a statically
      unstable column every other one, spline_vdiff at one, two and five
      tracers with one or two Akt profiles and bitwise, each redesign line
      saying whether it is bitwise, and the float64 launches over a
      block's shared memory refused (the tiled kernels with a (64, 128)
-     tile, the column sweeps and flux_omega's running sums at the
-     shallowest depth over it);
+     tile, the column sweeps and flux_omega's and omega's running sums
+     at the shallowest depth over it);
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
@@ -73,11 +78,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      fast loop (15 and 21 launches of kernel 12 a step, none of kernel
      11) and the fast loop's own time inside the step under each engine;
      then each kernel's time at its path's full-width
-     shapes next to its plain version, its bound and, for the
-     tridiagonal solve, torch.linalg.solve on the same systems; after
+     shapes next to its plain version, its bound (for the bulk fluxes
+     the larger of its bytes and its issue floor, the warp instructions
+     on the shortest path through its SASS over the card's issue rate)
+     and, for the tridiagonal solve, torch.linalg.solve on the same
+     systems; after
      the checks, three more 10-step windows of each app, timed by CUDA
      events and on the host, and the card's SM clock during a fourth,
-     for the step's spread within one call.
+     for the step's spread within one call; last, torch.profiler's
+     device kernels of one bulk_flux call (only csrc/bulk.cu's: its
+     wrapper launches no PyTorch operation).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -138,7 +148,8 @@ def main():
           f"(nvcc {_lib.build_seconds:.1f} s)", flush=True)
     print(_lib.ptxas_report(), flush=True)
     ptxas_summary(("kpp_kernel", "vdiff_kernel", "uv_finish_kernel",
-                   "uvmix_kernel", "flux_omega_kernel", "tridiag_kernel"))
+                   "uvmix_kernel", "flux_omega_kernel", "tridiag_kernel",
+                   "bulk_kernel", "stagger_kernel", "bulk_tile_kernel"))
     _lib.lib()
 
     full = [app for app in APPS if APPS[app]["full"]]
@@ -162,6 +173,12 @@ def main():
         rows = kernel_table(torch, app, counts[app])
         done = {row["name"] for row in table}
         table += [row for row in rows if row["name"] not in done]
+    # last, since a process that has run torch.profiler issues every later
+    # launch more slowly (DOUBLE_GYRE's host-bound step, 35238 launches,
+    # read ~90 ms/step slower after it)
+    bulk_alone(torch)
+    if FAILURES:
+        fail(FAILURES[-1])
     files = sorted({os.path.basename(src) for src, _ in SOURCES.values()})
     print(f"kernels: {files} ({len(files)} files, {len(table)} entry "
           f"points)", flush=True)
@@ -666,6 +683,13 @@ PRSGRD_SHAPES = [s for s in REDESIGN_SHAPES if s[0] != "double_gyre"] + [
 FLUX_SHAPES = PRSGRD_SHAPES + [("upwelling", (2, 2, 2)),
                                ("upwelling", (3, 2, 1)),
                                ("upwelling", (37, 41, 3))]
+# kernel 13's (Lm, Mm) planes on the BENCHMARK grid: BENCHMARK3's
+# (258 x 2050), Mj = Li = 4 and 5, and Mj = 43 with an odd Li = 47; each
+# with the flags (cool_skin, coare35) of BULK_FLAGS and blk_zq of BULK_ZQ
+# (10 m is blk_zt, 2 m not)
+BULK_PLANES = [(2048, 256), (2, 2), (3, 3), (45, 41)]
+BULK_FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+BULK_ZQ = (10.0, 2.0)
 # kernel 17's seeded systems: depths 1, 2, the closures' 15, 30 and the
 # class's 128 on (Mj, Li) planes whose column counts no block size divides
 TRIDIAG_DEPTHS = (1, 2, 15, 30, 128)
@@ -746,8 +770,8 @@ def redesign_checks(torch):
     """Kernels 2, 3, 4 and 5 at REDESIGN_SHAPES with the app's lanes and
     with closed walls, tadv's predictor and uv_solve from iic 0, 1 and 5,
     tadv at one, two and five tracers; kernels 9 and 10 at PRSGRD_SHAPES;
-    kernel 7 at FLUX_SHAPES and kernel 17 on seeded systems of
-    TRIDIAG_DEPTHS (both bitwise);
+    kernels 7 and 8 at FLUX_SHAPES, kernel 13 on BULK_PLANES (bulk_cases)
+    and kernel 17 on seeded systems of TRIDIAG_DEPTHS (all bitwise);
     kernels 6, 14 and 15 at COLUMN_SHAPES (spline_vdiff at VDIFF_TRACERS,
     bitwise; KPP's boundary layer column by column, both forcing regimes
     and columns with and without a crossing); kernel 12 on 4-lane
@@ -786,7 +810,30 @@ def redesign_checks(torch):
                 FAILURES.append(f"flux_omega {dtype} {app} N={N} Mj={Mm + 2}"
                                 f" Li={Lm + 2}: max rel {rel:.3e}, not "
                                 "bitwise equal to its plain version")
+            args, _ = entry_inputs(torch, "omega", *env, 5)
+            before = _lib.launches["omega"]
+            rel, abs_err = compare(torch, "omega", args, dtype)
+            print(f"kernel redesign {app:11s} omega           {dtype} app    "
+                  f"N={N} Mj={Mm + 2} Li={Lm + 2}: max rel {rel:.3e} max "
+                  f"abs {abs_err:.3e} {bitwise(rel)}", flush=True)
+            if rel or _lib.launches["omega"] != before + 1:
+                FAILURES.append(f"omega {dtype} {app} N={N} Mj={Mm + 2} Li="
+                                f"{Lm + 2}: max rel {rel:.3e}, launches "
+                                f"{_lib.launches['omega'] - before}; want "
+                                "bitwise, one launch")
             del env
+    for dtype in ("float64", "float32"):
+        for label, args in bulk_cases(torch, dtype):
+            before = _lib.launches["bulk_flux"]
+            rel, abs_err = compare(torch, "bulk_flux", args, dtype)
+            print(f"kernel redesign benchmark   bulk_flux       {dtype} "
+                  f"{label}: max rel {rel:.3e} max abs {abs_err:.3e} "
+                  f"{bitwise(rel)}", flush=True)
+            if rel or _lib.launches["bulk_flux"] != before + 1:
+                FAILURES.append(f"bulk_flux {dtype} {label}: max rel "
+                                f"{rel:.3e}, launches "
+                                f"{_lib.launches['bulk_flux'] - before}; "
+                                "want bitwise, one launch")
     for N in TRIDIAG_DEPTHS:
         for dtype in ("float64", "float32"):
             for Mj, Li in TRIDIAG_PLANES:
@@ -881,6 +928,11 @@ def redesign_checks(torch):
     env = setup(torch, 29, 12, N, "float64", app="benchmark")
     deep, _ = entry_inputs(torch, "flux_omega", *env, 5)
     refusals.append((f"flux_omega N={N}", lambda a=deep: flux.flux_omega(*a)))
+    # omega's, on the same grid
+    N = flux_refused_depth(14, 31, with_flux=False)
+    env = setup(torch, 29, 12, N, "float64", app="benchmark")
+    deep_w, _ = entry_inputs(torch, "omega", *env, 5)
+    refusals.append((f"omega N={N}", lambda a=deep_w: flux.omega(*a)))
     for what, call in refusals:
         try:
             call()
@@ -891,14 +943,63 @@ def redesign_checks(torch):
     del env
 
 
-def flux_refused_depth(Mj, Li):
-    """The shallowest depth whose float64 flux_omega launch on an (Mj, Li)
-    grid needs more shared memory than a block has."""
+def flux_refused_depth(Mj, Li, with_flux=True, itemsize=8):
+    """The shallowest depth whose flux_omega (or, `with_flux=False`, omega)
+    launch on an (Mj, Li) grid needs more shared memory than a block
+    has."""
     from roms_tpu_torch.ops import _lib, flux
     N = 1
-    while flux.launch_shape(N, Mj, Li, 8)[3] <= _lib.SMEM_PER_BLOCK:
+    while flux.launch_shape(N, Mj, Li, itemsize,
+                            with_flux)[3] <= _lib.SMEM_PER_BLOCK:
         N += 1
     return N
+
+
+def bulk_cases(torch, dtype, planes=None):
+    """(label, args) of kernel 13 on BULK_PLANES (or `planes`): each
+    plane's seeded atmosphere with every flag pair of BULK_FLAGS and
+    blk_zq of BULK_ZQ; fails unless both stability regimes (air colder
+    and warmer than the sea) are seeded on every plane."""
+    for Lm, Mm in planes or BULK_PLANES:
+        env = setup(torch, Lm, Mm, 2, dtype, app="benchmark")
+        args, _ = entry_inputs(torch, "bulk_flux", *env, 5)
+        cfg, atm, sst = args[:3]
+        unstable = int((atm.Tair < sst).sum())
+        if not 0 < unstable < sst.numel():
+            fail(f"bulk_flux {dtype} Mj={Mm + 2} Li={Lm + 2}: the seeded "
+                 f"atmosphere misses a stability regime ({unstable} of "
+                 f"{sst.numel()} points unstable)")
+        for (cool, c35), zq in [(f, z) for f in BULK_FLAGS for z in BULK_ZQ]:
+            c = cfg.replace(blk_zq=zq)
+            yield (f"Mj={Mm + 2} Li={Lm + 2} cool_skin={int(cool)} "
+                   f"coare35={int(c35)} zq={zq:g} (zt={c.blk_zt:g}; "
+                   f"{unstable} points unstable)",
+                   (c, *args[1:], cool, c35))
+        del env
+
+
+def bulk_alone(torch):
+    """The device kernels one bulk_flux call launches on BENCHMARK3's
+    plane, from torch.profiler: only csrc/bulk.cu's (no PyTorch
+    operation in the wrapper)."""
+    from torch.profiler import ProfilerActivity, profile
+    env = setup(torch, *BULK_PLANES[0], 2, "float32", app="benchmark")
+    args, _ = entry_inputs(torch, "bulk_flux", *env, 5)
+    kern = entry_fns("bulk_flux")[0]
+    kern(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kern(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    print(f"kernel redesign benchmark   bulk_flux       float32 device "
+          f"kernels of one call: {[n[:60] for n in names]}", flush=True)
+    if not names or any("bulk" not in n and "stagger_kernel" not in n
+                        for n in names):
+        FAILURES.append(f"bulk_flux: the wrapper launched {names}")
+    del env
 
 
 def tridiag_system(torch, N, Mj, Li, dtype, seed=11):
@@ -1221,6 +1322,137 @@ def closure_floors(torch, app, cfg, mix):
         fail(f"{app}: turbulence fields below the closure's floors")
 
 
+def sass_functions(obj):
+    """{demangled kernel name: [(address, instruction)]} of an object
+    file's SASS (`cuobjdump -sass`), or None where the toolkit has no
+    cuobjdump."""
+    import shutil
+    from pathlib import Path
+    from roms_tpu_torch.ops import _lib
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True).stdout
+    return parse_sass(text, _lib._demangle)
+
+
+def parse_sass(text, demangle=str):
+    """{kernel name: [(address, instruction)]} of `cuobjdump -sass` text."""
+    import re
+    funcs, body = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            body = funcs.setdefault(demangle(m.group(1)), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if m and body is not None:
+            body.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def sass_paths(code):
+    """(shortest, longest or None, instructions) of one kernel's SASS
+    from its entry through a global store to an EXIT: warp instructions
+    along the path with the fewest (a static count; calls to the
+    slow-path subroutines of IEEE division, square root and the like
+    count one), along the longest where no loop is reachable, and in the
+    whole function."""
+    import heapq
+    import re
+    at = {addr: n for n, (addr, _) in enumerate(code)}
+
+    def step(n):
+        # (successors, whether a path may end at n)
+        ins = code[n][1]
+        guard = ins.split()[0] if ins.startswith("@") else ""
+        op = ins.split()[1 if guard else 0]
+        nxt = [n + 1] if n + 1 < len(code) else []
+        if guard == "@!PT":
+            return nxt, False
+        pred = guard not in ("", "@PT")
+        if op.startswith(("EXIT", "RET")):
+            return (nxt if pred else []), True
+        if op.startswith("BRA"):
+            tgt = at.get(int(re.findall(r"0x[0-9a-f]+", ins)[-1], 16))
+            if tgt is not None:
+                return ([tgt] + nxt if pred else [tgt]), False
+        return nxt, False
+    # states (instruction, whether a global store was passed): a path
+    # counts once it has stored, so a thread past the grid's last point
+    # (an early EXIT) is no path
+    dist, heap, best = {(0, False): 1}, [(1, 0, False)], None
+    reach = set()
+    while heap:
+        d, n, stored = heapq.heappop(heap)
+        if d > dist[(n, stored)]:
+            continue
+        reach.add(n)
+        stored = stored or " STG" in " " + code[n][1]
+        nxt, ends = step(n)
+        if ends and stored:
+            best = d if best is None else min(best, d)
+        for m in nxt:
+            if d + 1 < dist.get((m, stored), 1 << 30):
+                dist[(m, stored)] = d + 1
+                heapq.heappush(heap, (d + 1, m, stored))
+    far = None
+    if all(m > n for n in reach for m in step(n)[0]):
+        longest = {}
+        for n in sorted(reach, reverse=True):
+            nxt, ends = step(n)
+            tails = [longest[m] for m in nxt if m in longest]
+            if tails or ends:
+                longest[n] = 1 + max(tails, default=0)
+        far = longest.get(0)
+    return best, far, len(code)
+
+
+def issue_floor(torch, points):
+    """Kernel 13's issue floor at `points` points: the warp instructions a
+    point along the shortest path through the float32 kernels of the
+    main path (bulk_kernel<float, true>, blk_zt == blk_zq, and
+    stagger_kernel<float>), times the points' warps, over 4 schedulers x
+    132 SMs x the card's highest SM clock (nvidia-smi, this call).
+    Returns (ms, text) or (None, text)."""
+    from roms_tpu_torch.ops import _lib
+    funcs = sass_functions(_lib.build_dir / "bulk.o")
+    if funcs is None:
+        return None, "cuobjdump not found: issue floor not measured"
+    found = {}
+    for name, code in funcs.items():
+        for key in ("bulk_kernel<float, true>", "stagger_kernel<float>"):
+            if f"::{key}(" in name:
+                found[key] = (sass_paths(code), code)
+    if len(found) != 2:
+        return None, f"SASS of {sorted(found)} only: issue floor not measured"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    if smi.returncode or not smi.stdout.strip():
+        return None, "nvidia-smi gave no SM clock: issue floor not measured"
+    mhz = float(smi.stdout.split()[0])
+    per_point = sum(p[0] for p, _ in found.values())
+    warps = -(-points // 32)
+    ms = 1e3 * per_point * warps / (4 * 132 * mhz * 1e6)
+    (short, far, total), code = found["bulk_kernel<float, true>"]
+    mufu_all = sum(1 for _, ins in code if "MUFU" in ins)
+    branches = sum(1 for _, ins in code
+                   if ins.startswith("@") and " BRA" in ins)
+    text = (f"bulk_kernel<float, true>: {short} warp instructions on its "
+            f"shortest path (a static SASS count: a stable point without "
+            f"cool skin, each IEEE division's slow path a call), {far} on "
+            f"its longest (the unstable branches, cool skin and the slow "
+            f"paths), {total} in the function, {branches} conditional "
+            f"branches, {mufu_all} MUFU; stagger_kernel<float>: "
+            f"{found['stagger_kernel<float>'][0][0]}; {per_point} a point x "
+            f"{warps} warps / (4 x 132 x {mhz:g} MHz) -> issue floor "
+            f"{ms:.4f} ms")
+    return ms, text
+
+
 def tridiag_library(torch, args, out):
     """torch.linalg.solve on the same systems built densely as a
     (Mj*Li, n, n) batch: the PyTorch call that computes the same
@@ -1279,6 +1511,11 @@ def kernel_table(torch, app, counts):
         if name == "tridiag":
             library_ms = cuda_ms(torch, tridiag_library(torch, args,
                                                         outs[0]), 3)
+        if name == "bulk_flux":
+            # the instructions it issues: an operations bound
+            t_issue, text = issue_floor(torch, npts)
+            print(f"{app} {text}", flush=True)
+            t_ops = max(t_ops, t_issue or 0.0)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": counts[name],
                "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
@@ -1355,16 +1592,18 @@ def kernel_table(torch, app, counts):
             print(f"{app} {name} {B} threads a block, {blocks} blocks (u "
                   f"and v), {smem} B dynamic shared memory a block "
                   f"({vals} values a thread)", flush=True)
-        if name == "flux_omega":
+        if name in ("flux_omega", "omega"):
             from roms_tpu_torch.ops import flux
-            N, Mj, Li = outs[0].shape
+            N, Mj, Li = outs[-1].shape
+            N -= 1
             TJ, TI, blocks, smem = flux.launch_shape(
-                N, Mj, Li, outs[0].element_size())
-            win = (TJ + 2) * (TI + 2) / (TJ * TI)
-            print(f"{app} flux_omega tile {TJ}x{TI}, {blocks} blocks, {smem} "
+                N, Mj, Li, outs[0].element_size(), name == "flux_omega")
+            win = (TJ + 2) * (TI + 2) / (TJ * TI) if name == "flux_omega" \
+                else (TJ + 1) * (TI + 1) / (TJ * TI)
+            print(f"{app} {name} tile {TJ}x{TI}, {blocks} blocks, {smem} "
                   f"B dynamic shared memory a block ({N - 1} levels of "
-                  f"running sums); Hz window {win:.3f}x the tile (halo from "
-                  f"L2)", flush=True)
+                  f"running sums); staged window {win:.3f}x the tile (halo "
+                  f"from L2)", flush=True)
         if name == "tridiag":
             from roms_tpu_torch.ops import tridiag
             B, blocks, smem = tridiag.launch_shape(
@@ -1438,7 +1677,8 @@ def fast_loop_terms(torch, app):
 # the launch shapes timed against the chosen ones (ops/rhs3d.py TILE,
 # ops/uv.py SOLVE_THREADS and FINISH_THREADS, ops/tadv.py TILE,
 # ops/prsgrd.py TILE, ops/uvmix.py TILE, ops/kpp.py PREP_THREADS,
-# ops/vdiff.py VDIFF_THREADS, ops/flux.py TILE, ops/tridiag.py THREADS;
+# ops/vdiff.py VDIFF_THREADS, ops/flux.py TILE, ops/tridiag.py THREADS,
+# ops/bulk.py SHAPE;
 # tridiag at the GLS/MY2.5 solves' shape, with the UPWELLING app)
 RHS3D_TILES = ((8, 32), (16, 16), (4, 64), (8, 16))
 UV_SOLVE_THREADS = (64, 96, 128, 192)
@@ -1450,6 +1690,8 @@ PREP_THREADS_TRIED = (32, 64, 96, 128)
 VDIFF_THREADS_TRIED = (64, 96, 128, 192, 256)
 FLUX_TILES = ((7, 31), (15, 15), (3, 63), (7, 15))
 TRIDIAG_THREADS_TRIED = (64, 128, 192, 256)
+# ops/bulk.py SHAPE: form (a) at three block sizes, form (b) at two tiles
+BULK_SHAPES = (128, 256, 512, (8, 32), (16, 32))
 
 
 def launch_shapes(torch, app):
@@ -1458,12 +1700,13 @@ def launch_shapes(torch, app):
     of UV_SOLVE_THREADS and UV_FINISH_THREADS, tadv's (both modes) with
     each of TADV_TILES, prsgrd's and uvmix's with each of PRSGRD_TILES
     and UVMIX_TILES, and prep's and spline_vdiff's with each block size of
-    PREP_THREADS_TRIED and VDIFF_THREADS_TRIED, flux_omega's with each of
-    FLUX_TILES and tridiag's with each block size of TRIDIAG_THREADS_TRIED
-    at the app's full width, float32, each output bitwise against the
-    chosen shape's."""
-    from roms_tpu_torch.ops import (flux, kpp, prsgrd, rhs3d, tadv, tridiag,
-                                    uv, uvmix, vdiff)
+    PREP_THREADS_TRIED and VDIFF_THREADS_TRIED, flux_omega's and omega's
+    with each of FLUX_TILES, bulk_flux's in each form and shape of
+    BULK_SHAPES and tridiag's with each block size of
+    TRIDIAG_THREADS_TRIED at the app's full width, float32, each output
+    bitwise against the chosen shape's."""
+    from roms_tpu_torch.ops import (bulk, flux, kpp, prsgrd, rhs3d, tadv,
+                                    tridiag, uv, uvmix, vdiff)
 
     def tile_of(mod):
         return lambda: mod.TILE, lambda x: setattr(mod, "TILE", x)
@@ -1484,6 +1727,9 @@ def launch_shapes(torch, app):
              lambda: vdiff.VDIFF_THREADS[4],
              lambda x: vdiff.VDIFF_THREADS.__setitem__(4, x)),
             ("flux_omega", FLUX_TILES, *tile_of(flux)),
+            ("omega", FLUX_TILES, *tile_of(flux)),
+            ("bulk_flux", BULK_SHAPES, lambda: bulk.SHAPE,
+             lambda x: setattr(bulk, "SHAPE", x)),
             ("tridiag", TRIDIAG_THREADS_TRIED, lambda: tridiag.THREADS[4],
              lambda x: tridiag.THREADS.__setitem__(4, x))):
         if name not in APPS[app]["entries"] and not (
@@ -1586,8 +1832,8 @@ def profile_step(torch, app):
         "rho_kernel", "tadv_kernel", "rhs3d_kernel", "uv_solve_kernel",
         "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
         "prsgrd_kernel", "uvmix_kernel", "half_step", "bulk_kernel",
-        "kpp_kernel", "rot_div_geo_kernel", "tridiag_kernel",
-        "blocked_kernel", "omega_kernel"))]
+        "stagger_kernel", "bulk_tile_kernel", "kpp_kernel",
+        "rot_div_geo_kernel", "tridiag_kernel", "blocked_kernel"))]
     ours_us = sum(e.self_device_time_total for e in ours)
     print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "
           f"time in {sum(e.count for e in ours)} launches", flush=True)

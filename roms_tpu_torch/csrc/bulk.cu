@@ -1,14 +1,16 @@
 // Kernel 13: COARE 3.0 bulk air-sea fluxes (Fairall et al. 1996/2003,
-// bulk_flux.F open-water path) at rho points.
+// bulk_flux.F open-water path) at rho points, and the stresses staggered
+// to U and V points.
 //
 // Replaces roms_tpu/ops/pallas_bulk.py:41 bulk_flux_pallas (pallas_call
-// at l.57); block math core/bulk_flux.py bulk_flux_rho.  Plain version
-// ops/bulk.py bulk_flux_plain; the U/V staggering of the stresses stays
-// in the wrapper, as roms_tpu keeps it outside its kernel.
+// at l.57); block math core/bulk_flux.py bulk_flux_rho, then
+// stagger_stress (roms_tpu staggers outside its kernel; here one C entry
+// does both).  Plain version ops/bulk.py bulk_flux_plain.
 //
-// Bound on the H100: bytes in principle (11 planes in, 4 out), but at
-// ~60 bytes and ~400 flops a point the call is short, and at the
-// BENCHMARK3 plane (258 x 2050) its time is launch latency.
+// Bound on the H100: the instructions it issues.  It moves ~60 bytes a
+// point (11 planes in, 4 out) but computes ~20 transcendentals and ~25
+// IEEE divisions a point, each many instructions (chip_smoke.py counts
+// the issue floor from the built kernel's SASS).
 //
 // Design: one thread per (j, i) point, consecutive threads on
 // consecutive i; the three Monin-Obukhov passes are unrolled in
@@ -18,12 +20,30 @@
 // plain version, where every operation is its own kernel.  The plain
 // version's conventions are kept: a tensor is never divided by a
 // constant (it is multiplied by the reciprocal), and integer powers are
-// products.  atan is roms_tpu's polynomial (_arctan), not atanf.
+// products.  atan is roms_tpu's polynomial (_arctan), not atanf.  What
+// the plain version computes twice from equal inputs is computed once:
+// with blk_zt == blk_zq (kSameTQ) the humidity's stability function and
+// its log(zq/ZoQ) are the temperature's, and psiu/psit take only the
+// branch of the point's regime, where the plain version builds both and
+// selects one.
+//
+// Two forms (ops/bulk.py SHAPE):
+//   (a) bulk_kernel writes the rho-point stresses to two scratch planes,
+//       and stagger_kernel, launched after it on the same stream, forms
+//       sustr = 0.5*(Taux + im1(Taux))*(1/rho0) and svstr likewise with
+//       jm1, both rolls wrapping as torch.roll wraps;
+//   (b) bulk_tile_kernel computes the points of a TJ x TI tile and the
+//       stresses of its west lane and south row (a second point for a
+//       few threads), keeps the stresses in shared memory and writes
+//       sustr and svstr itself.
+// The staggering's products are mul_rn in the plain version's order (add,
+// times 0.5, times 1/rho0 rounded to T as PyTorch rounds a Python scalar).
 #include "common.cuh"
 
 namespace {
 
 using roms::mul_rn;
+using roms::wrap;
 
 constexpr double STEFBO = 5.67e-8, EMMISS = 0.97, RHOW = 1000.0;
 constexpr double BLK_CPA = 1004.67, BLK_CPW = 4000.0, BLK_RGAS = 287.1;
@@ -31,12 +51,26 @@ constexpr double BLK_ZABL = 600.0, BLK_BETA = 1.2;
 constexpr double EPS = 1.0e-20;
 constexpr double PI = 3.141592653589793;
 constexpr double S3 = 1.7320508075688772;   // sqrt(3)
+constexpr int kMaxThreads = 512;
 
 struct BulkParams {
   int cool_skin, coare35;
   double rho0, Cp, g, vonKar, zw, zt, zq;
   double o_ribcu;           // 1/Ribcu, as the plain version's Python float
   double Fc;                // cool-skin Fc (bulk_flux.F), from Python
+};
+
+// the eleven input planes, in the order of the C entry
+template <typename T>
+struct BulkIn {
+  const T *Uwind, *Vwind, *Tair, *Pair, *Hair, *cloud, *rain, *srflx, *sst,
+      *sss, *rho_surf;
+};
+
+// what one point gives: the rho-point stresses and the surface fluxes
+template <typename T>
+struct BulkOut {
+  T taux, tauy, stT, stS;
 };
 
 template <typename T>
@@ -85,38 +119,40 @@ __device__ __forceinline__ T psi_stable_tail(T ZoL) {
   return mul_rn(T(0.6667), ZoL - T(14.28)) / exp(cff);
 }
 
-// bulk_flux.F:1465-1528
+// bulk_flux.F:1465-1528; the plain version's torch.where(ZoL < 0, ...)
 template <typename T>
 __device__ T psiu(T ZoL) {
-  const T x = pow(mx(T(1.0) - mul_rn(T(15.0), ZoL), T(EPS)), T(0.25));
-  const T psik = mul_rn(T(2.0), log(mul_rn(T(0.5), T(1.0) + x)))
-                 + log(mul_rn(T(0.5), T(1.0) + mul_rn(x, x)))
-                 - mul_rn(T(2.0), arctan(x)) + T(0.5 * PI);
-  const T y = pow(mx(T(1.0) - mul_rn(T(10.15), ZoL), T(EPS)),
-                  T(1.0 / 3.0));
-  const T psic = psi_convective(y);
-  const T z2 = mul_rn(ZoL, ZoL);
-  const T Fw = z2 / (T(1.0) + z2);
-  const T unstable = mul_rn(T(1.0) - Fw, psik) + mul_rn(Fw, psic);
-  const T stable = -((T(1.0) + ZoL) + psi_stable_tail(ZoL) + T(8.525));
-  return ZoL < T(0.0) ? unstable : stable;
+  if (ZoL < T(0.0)) {
+    const T x = pow(mx(T(1.0) - mul_rn(T(15.0), ZoL), T(EPS)), T(0.25));
+    const T psik = mul_rn(T(2.0), log(mul_rn(T(0.5), T(1.0) + x)))
+                   + log(mul_rn(T(0.5), T(1.0) + mul_rn(x, x)))
+                   - mul_rn(T(2.0), arctan(x)) + T(0.5 * PI);
+    const T y = pow(mx(T(1.0) - mul_rn(T(10.15), ZoL), T(EPS)),
+                    T(1.0 / 3.0));
+    const T psic = psi_convective(y);
+    const T z2 = mul_rn(ZoL, ZoL);
+    const T Fw = z2 / (T(1.0) + z2);
+    return mul_rn(T(1.0) - Fw, psik) + mul_rn(Fw, psic);
+  }
+  return -((T(1.0) + ZoL) + psi_stable_tail(ZoL) + T(8.525));
 }
 
 // bulk_flux.F:1530-1592
 template <typename T>
 __device__ T psit(T ZoL) {
-  const T x = sqrt(mx(T(1.0) - mul_rn(T(15.0), ZoL), T(EPS)));
-  const T psik = mul_rn(T(2.0), log(mul_rn(T(0.5), T(1.0) + x)));
-  const T y = pow(mx(T(1.0) - mul_rn(T(34.15), ZoL), T(EPS)),
-                  T(1.0 / 3.0));
-  const T psic = psi_convective(y);
-  const T z2 = mul_rn(ZoL, ZoL);
-  const T Fw = z2 / (T(1.0) + z2);
-  const T unstable = mul_rn(T(1.0) - Fw, psik) + mul_rn(Fw, psic);
+  if (ZoL < T(0.0)) {
+    const T x = sqrt(mx(T(1.0) - mul_rn(T(15.0), ZoL), T(EPS)));
+    const T psik = mul_rn(T(2.0), log(mul_rn(T(0.5), T(1.0) + x)));
+    const T y = pow(mx(T(1.0) - mul_rn(T(34.15), ZoL), T(EPS)),
+                    T(1.0 / 3.0));
+    const T psic = psi_convective(y);
+    const T z2 = mul_rn(ZoL, ZoL);
+    const T Fw = z2 / (T(1.0) + z2);
+    return mul_rn(T(1.0) - Fw, psik) + mul_rn(Fw, psic);
+  }
   const T z15 = T(1.0) + mul_rn(T(2.0), ZoL);
-  const T stable = -(mul_rn(z15, sqrt(mx(z15, T(0.0))))
-                     + psi_stable_tail(ZoL) + T(8.525));
-  return ZoL < T(0.0) ? unstable : stable;
+  return -(mul_rn(z15, sqrt(mx(z15, T(0.0)))) + psi_stable_tail(ZoL) +
+           T(8.525));
 }
 
 template <typename T>
@@ -125,34 +161,21 @@ __device__ __forceinline__ T sat_vapor(T TC, T Pair) {
                 exp(mul_rn(T(17.502), TC) / (T(240.97) + TC)));
 }
 
-template <typename T>
-__global__ void bulk_kernel(const T* __restrict__ Uwind,
-                            const T* __restrict__ Vwind,
-                            const T* __restrict__ Tair,
-                            const T* __restrict__ Pair_,
-                            const T* __restrict__ Hair,
-                            const T* __restrict__ cloud,
-                            const T* __restrict__ rain_,
-                            const T* __restrict__ srflx,
-                            const T* __restrict__ sst,
-                            const T* __restrict__ sss_,
-                            const T* __restrict__ rho_surf,
-                            T* __restrict__ taux_out,
-                            T* __restrict__ tauy_out,
-                            T* __restrict__ stT_out,
-                            T* __restrict__ stS_out, int P, BulkParams p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= P) return;
+// COARE at the point c
+template <typename T, bool kSameTQ>
+__device__ __forceinline__ BulkOut<T> bulk_point(const BulkIn<T>& in, int c,
+                                                 const BulkParams& p) {
   const T vonKar = T(p.vonKar);
   const T zw = T(p.zw), zt = T(p.zt), zq = T(p.zq);
   const T o_g = T(1.0 / p.g);
-  const T Uw = Uwind[c], Vw = Vwind[c], Pair = Pair_[c], RH = Hair[c];
-  const T cl = cloud[c], rain = rain_[c], sr = srflx[c], sss = sss_[c];
+  const T Uw = in.Uwind[c], Vw = in.Vwind[c], Pair = in.Pair[c];
+  const T RH = in.Hair[c], cl = in.cloud[c], rain = in.rain[c];
+  const T sr = in.srflx[c], sss = in.sss[c];
 
   const T Wmag = sqrt(mul_rn(Uw, Uw) + mul_rn(Vw, Vw));
-  const T TairC = Tair[c];
+  const T TairC = in.Tair[c];
   const T TairK = TairC + T(273.16);
-  const T TseaC = sst[c];
+  const T TseaC = in.sst[c];
   const T TseaK = TseaC + T(273.16);
   const T SRad = mul_rn(sr, T(p.rho0 * p.Cp));
 
@@ -216,8 +239,11 @@ __global__ void bulk_kernel(const T* __restrict__ Uwind,
       : mul_rn(CC, Ri) / (T(1.0) + mul_rn(T(3.0), Ri) / CC);
   const T L10 = zw / Zetu;
   Wstar = mul_rn(delW, vonKar) / (log(zw / Zo10) - psiu(zw / L10));
-  T Tstar = mul_rn(-delT, vonKar) / (log(zt / ZoT10) - psit(zt / L10));
-  T Qstar = mul_rn(-delQ, vonKar) / (log(zq / ZoT10) - psit(zq / L10));
+  // with zt == zq, the humidity's denominator is the temperature's
+  const T denT = log(zt / ZoT10) - psit(zt / L10);
+  const T denQ = kSameTQ ? denT : log(zq / ZoT10) - psit(zq / L10);
+  T Tstar = mul_rn(-delT, vonKar) / denT;
+  T Qstar = mul_rn(-delQ, vonKar) / denQ;
 
   T charn;
   if (p.coare35) {
@@ -238,10 +264,11 @@ __global__ void bulk_kernel(const T* __restrict__ Uwind,
                       (T(1.0) - mul_rn(mul_rn(T(0.026), sss), T(1.0 / 34.0))
                        + T(EPS)),
                   T(0.0)) + T(0.026);
-    rhoSea = T(p.rho0) + rho_surf[c];
+    rhoSea = T(p.rho0) + in.rho_surf[c];
   }
 
   // Monin-Obukhov iteration (IterMax=3)
+#pragma unroll
   for (int it = 0; it < 3; ++it) {
     const T ZoW = mul_rn(mul_rn(mul_rn(charn, Wstar), Wstar), o_g) +
                   mul_rn(T(0.11), VisAir) / (Wstar + T(EPS));
@@ -254,11 +281,11 @@ __global__ void bulk_kernel(const T* __restrict__ Uwind,
                   (mul_rn(mul_rn(mul_rn(TairK, Wstar), Wstar), q61) + T(EPS));
     const T L = zw / (ZoL + T(EPS));
     const T Wpsi = psiu(ZoL);
-    const T Tpsi = psit(zt / L);
-    const T Qpsi = psit(zq / L);
+    const T dT = log(zt / ZoT) - psit(zt / L);
+    const T dQ = kSameTQ ? dT : log(zq / ZoQ) - psit(zq / L);
     Wstar = mx(mul_rn(delW, vonKar) / (log(zw / ZoW) - Wpsi), T(EPS));
-    Tstar = mul_rn(-(delT - delTc), vonKar) / (log(zt / ZoT) - Tpsi);
-    Qstar = mul_rn(-(delQ - delQc), vonKar) / (log(zq / ZoQ) - Qpsi);
+    Tstar = mul_rn(-(delT - delTc), vonKar) / dT;
+    Qstar = mul_rn(-(delQ - delQc), vonKar) / dQ;
     const T Bf = mul_rn(mul_rn(T(-p.g) / TairK, Wstar),
                         Tstar + mul_rn(mul_rn(T(0.61), TairK), Qstar));
     Wgus = Bf > T(0.0)
@@ -316,51 +343,167 @@ __global__ void bulk_kernel(const T* __restrict__ Uwind,
   const T Taur = mul_rn(mul_rn(T(0.85), fabs(rain)), Wmag);
   const T cfft = mul_rn(rhoAir, mul_rn(Wstar, Wstar) + Taur / rhoAir) /
                  (Wmag + T(EPS));
-  taux_out[c] = mul_rn(cfft, Uw);
-  tauy_out[c] = mul_rn(cfft, Vw);
+  BulkOut<T> o;
+  o.taux = mul_rn(cfft, Uw);
+  o.tauy = mul_rn(cfft, Vw);
   const T oH = T(1.0 / (p.rho0 * p.Cp));
   const T lrflx = mul_rn(LRad, oH);
   const T lhflx = mul_rn(-LHeat, oH);
   const T shflx = mul_rn(-SHeat, oH);
-  stT_out[c] = sr + lrflx + lhflx + shflx;
+  o.stT = sr + lrflx + lhflx + shflx;
   const T evap = LHeat / (Hlv + T(EPS));
-  stS_out[c] = mul_rn(mul_rn(evap - rain, sss), T(1.0 / RHOW));
+  o.stS = mul_rn(mul_rn(evap - rain, sss), T(1.0 / RHOW));
+  return o;
 }
 
+// stagger_stress at one point: 0.5 * (a + a_west_or_south) * (1/rho0)
 template <typename T>
-int launch(const void* const* in, void* const* out, int P,
-           const BulkParams& p, void* stream) {
-  bulk_kernel<T><<<roms::blocks_for(P), roms::kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
-      static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
-      static_cast<const T*>(in[4]), static_cast<const T*>(in[5]),
-      static_cast<const T*>(in[6]), static_cast<const T*>(in[7]),
-      static_cast<const T*>(in[8]), static_cast<const T*>(in[9]),
-      static_cast<const T*>(in[10]), static_cast<T*>(out[0]),
-      static_cast<T*>(out[1]), static_cast<T*>(out[2]),
-      static_cast<T*>(out[3]), P, p);
+__device__ __forceinline__ T stagger(T a, T b, T o_rho0) {
+  return mul_rn(mul_rn(T(0.5), a + b), o_rho0);
+}
+
+// form (a), first kernel: the rho-point stresses to scratch planes
+template <typename T, bool kSameTQ>
+__global__ void __launch_bounds__(kMaxThreads)
+bulk_kernel(const __grid_constant__ BulkIn<T> in, T* __restrict__ taux,
+            T* __restrict__ tauy, T* __restrict__ stT, T* __restrict__ stS,
+            int P, const __grid_constant__ BulkParams p) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= P) return;
+  const BulkOut<T> o = bulk_point<T, kSameTQ>(in, c, p);
+  taux[c] = o.taux;
+  tauy[c] = o.tauy;
+  stT[c] = o.stT;
+  stS[c] = o.stS;
+}
+
+// form (a), second kernel: the stresses to U and V points
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+stagger_kernel(const T* __restrict__ taux, const T* __restrict__ tauy,
+               T* __restrict__ sustr, T* __restrict__ svstr, int Mj, int Li,
+               double rho0) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= Mj * Li) return;
+  const int j = c / Li, i = c - j * Li;
+  const T o_rho0 = T(1.0 / rho0);
+  sustr[c] = stagger(taux[c], taux[j * Li + wrap(i - 1, Li)], o_rho0);
+  svstr[c] = stagger(tauy[c], tauy[wrap(j - 1, Mj) * Li + i], o_rho0);
+}
+
+// form (b): a TJ x TI tile a block of TJ * TI threads, the stresses of the
+// tile grown a lane west and a row south in shared memory
+template <typename T, bool kSameTQ>
+__global__ void __launch_bounds__(kMaxThreads)
+bulk_tile_kernel(const __grid_constant__ BulkIn<T> in, T* __restrict__ sustr,
+                 T* __restrict__ svstr, T* __restrict__ stT,
+                 T* __restrict__ stS, int Mj, int Li, int TJ, int TI,
+                 const __grid_constant__ BulkParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int GI = TI + 1;   // stride of the grown tile
+  T* sx = reinterpret_cast<T*>(smem);   // Taux at (yy + 1, xx + 1)
+  T* sy = sx + (TJ + 1) * GI;           // Tauy
+  const int j0 = blockIdx.y * TJ, i0 = blockIdx.x * TI;
+  const int tj = min(TJ, Mj - j0), ti = min(TI, Li - i0);
+  const int tx = threadIdx.x, yy = tx / TI, xx = tx - yy * TI;
+  const bool mine = yy < tj && xx < ti;
+  const int c = (j0 + yy) * Li + i0 + xx;
+  // pass 0 this thread's point; pass 1, for the first tj + ti threads, a
+  // point of the west lane (its Taux is read) or of the south row (its
+  // Tauy), the rolls wrapping; one call site, so the body is inlined once
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    int at, cc;
+    if (pass == 0) {
+      if (!mine) continue;
+      at = (yy + 1) * GI + xx + 1;
+      cc = c;
+    } else if (tx < tj) {
+      at = (tx + 1) * GI;
+      cc = (j0 + tx) * Li + wrap(i0 - 1, Li);
+    } else if (tx < tj + ti) {
+      at = tx - tj + 1;
+      cc = wrap(j0 - 1, Mj) * Li + i0 + tx - tj;
+    } else {
+      break;
+    }
+    const BulkOut<T> o = bulk_point<T, kSameTQ>(in, cc, p);
+    sx[at] = o.taux;
+    sy[at] = o.tauy;
+    if (pass == 0) {
+      stT[c] = o.stT;
+      stS[c] = o.stS;
+    }
+  }
+  __syncthreads();
+  if (!mine) return;
+  const T o_rho0 = T(1.0 / p.rho0);
+  const int at = (yy + 1) * GI + xx + 1;
+  sustr[c] = stagger(sx[at], sx[at - 1], o_rho0);
+  svstr[c] = stagger(sy[at], sy[at - GI], o_rho0);
+}
+
+template <typename T, bool kSameTQ>
+int launch(const BulkIn<T>& in, T* taux, T* tauy, T* sustr, T* svstr,
+           T* stT, T* stS, int Mj, int Li, int TJ, int TI,
+           const BulkParams& p, cudaStream_t st) {
+  const int P = Mj * Li;
+  if (TJ == 0) {
+    // form (a): TI threads a block
+    if (TI < 32 || TI > kMaxThreads)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = (P + TI - 1) / TI;
+    bulk_kernel<T, kSameTQ><<<blocks, TI, 0, st>>>(in, taux, tauy, stT, stS,
+                                                   P, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stagger_kernel<T><<<blocks, TI, 0, st>>>(taux, tauy, sustr, svstr, Mj, Li,
+                                             p.rho0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // form (b): TJ x TI tiles
+  if (TJ * TI > kMaxThreads || TJ * TI < TJ + TI)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * sizeof(T) * (TJ + 1) * (TI + 1);
+  const dim3 grid((Li + TI - 1) / TI, (Mj + TJ - 1) / TJ);
+  bulk_tile_kernel<T, kSameTQ><<<grid, TJ * TI, smem, st>>>(
+      in, sustr, svstr, stT, stS, Mj, Li, TJ, TI, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// TJ == 0: form (a), TI threads a block, the rho-point stresses in the
+// scratch planes taux and tauy; TJ > 0: form (b) on TJ x TI tiles
 #define ROMS_BULK_ENTRY(NAME, T)                                             \
   extern "C" int NAME(const void* Uwind, const void* Vwind,                 \
                       const void* Tair, const void* Pair, const void* Hair, \
                       const void* cloud, const void* rain,                  \
                       const void* srflx, const void* sst, const void* sss,  \
                       const void* rho_surf, void* taux, void* tauy,         \
-                      void* stT, void* stS, int P, int cool_skin,           \
-                      int coare35, double rho0, double Cp, double g,        \
-                      double vonKar, double zw, double zt, double zq,       \
-                      double o_ribcu, double Fc, void* stream) {            \
-    const void* in[11] = {Uwind, Vwind, Tair, Pair, Hair, cloud,            \
-                          rain,  srflx, sst,  sss,  rho_surf};              \
-    void* out[4] = {taux, tauy, stT, stS};                                  \
-    BulkParams p{cool_skin, coare35, rho0, Cp, g, vonKar, zw, zt, zq,       \
-                 o_ribcu, Fc};                                              \
-    return launch<T>(in, out, P, p, stream);                                \
+                      void* sustr, void* svstr, void* stT, void* stS,       \
+                      int Mj, int Li, int TJ, int TI, int cool_skin,        \
+                      int coare35, int same_tq, double rho0, double Cp,     \
+                      double g, double vonKar, double zw, double zt,        \
+                      double zq, double o_ribcu, double Fc, void* stream) { \
+    const BulkIn<T> in{                                                     \
+        static_cast<const T*>(Uwind), static_cast<const T*>(Vwind),         \
+        static_cast<const T*>(Tair),  static_cast<const T*>(Pair),          \
+        static_cast<const T*>(Hair),  static_cast<const T*>(cloud),         \
+        static_cast<const T*>(rain),  static_cast<const T*>(srflx),         \
+        static_cast<const T*>(sst),   static_cast<const T*>(sss),           \
+        static_cast<const T*>(rho_surf)};                                   \
+    const BulkParams p{cool_skin, coare35, rho0, Cp, g, vonKar, zw, zt, zq, \
+                       o_ribcu, Fc};                                        \
+    T* const out[6] = {static_cast<T*>(taux),  static_cast<T*>(tauy),       \
+                       static_cast<T*>(sustr), static_cast<T*>(svstr),      \
+                       static_cast<T*>(stT),   static_cast<T*>(stS)};       \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                    \
+    return same_tq ? launch<T, true>(in, out[0], out[1], out[2], out[3],    \
+                                     out[4], out[5], Mj, Li, TJ, TI, p, st) \
+                   : launch<T, false>(in, out[0], out[1], out[2], out[3],   \
+                                      out[4], out[5], Mj, Li, TJ, TI, p,    \
+                                      st);                                  \
   }
 
 ROMS_BULK_ENTRY(roms_bulk_flux_f32, float)

@@ -1,11 +1,13 @@
-"""Kernel 13: COARE 3.0 bulk air-sea fluxes (csrc/bulk.cu).
+"""Kernel 13: COARE 3.0 bulk air-sea fluxes with the stresses staggered to
+U and V points (csrc/bulk.cu).
 
 Replaces roms_tpu/ops/pallas_bulk.py `bulk_flux_pallas`.  The plain
 version is core/bulk_flux.py `bulk_flux_rho` with the U/V staggering of
-the stresses, which roms_tpu also does outside its kernel.  `covers` is
-every configuration: roms_tpu's gate (`use_pallas_kpp`) has no config
-class, and the step takes this kernel wherever the forcing function
-takes the ocean surface state.
+the stresses (`stagger_stress`), which roms_tpu does outside its kernel
+and the port's C entry does on the card, so the wrapper launches no
+PyTorch operation.  `covers` is every configuration: roms_tpu's gate
+(`use_pallas_kpp`) has no config class, and the step takes this kernel
+wherever the forcing function takes the ocean surface state.
 """
 
 from __future__ import annotations
@@ -18,6 +20,11 @@ from . import _lib
 # AtmState fields in the kernel's argument order
 FIELDS = ("Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
           "srflx")
+# the launch: an int is form (a), that many threads a block (the bulk
+# kernel writes the rho-point stresses to scratch planes, a second kernel
+# staggers them); a pair (TJ, TI) is form (b), one block a tile that also
+# computes its west lane's and south row's stresses
+SHAPE = 256
 
 
 def covers(cfg) -> bool:
@@ -39,20 +46,33 @@ def bulk_flux(cfg, atm, sst, sss, rho_surf, cool_skin=False,
     if sst.device.type == "cpu":
         return bulk_flux_plain(cfg, atm, sst, sss, rho_surf, cool_skin,
                                coare35)
-    from ..core.bulk_flux import _FC, ribcu, stagger_stress
-    shp = sst.shape
-    ins = [getattr(atm, f).expand(shp) for f in FIELDS] + [sst, sss,
-                                                            rho_surf]
+    Mj, Li = sst.shape
+    ins = [getattr(atm, f).expand(Mj, Li) for f in FIELDS] + [sst, sss,
+                                                               rho_surf]
     ins, sfx, stream = _lib.prepare("bulk_flux", ins)
+    return _launch(cfg, sfx, stream, ins, cool_skin, coare35)
+
+
+def _launch(cfg, sfx, stream, ins, cool_skin, coare35):
+    """One C call: the bulk fluxes and the staggered stresses, in the
+    form SHAPE picks; returns (sustr, svstr, stflx_T, stflx_S)."""
+    from ..core.bulk_flux import _FC, ribcu
+    Mj, Li = ins[8].shape
+    TJ, TI = (0, SHAPE) if isinstance(SHAPE, int) else SHAPE
     outs = [torch.empty_like(ins[8]) for _ in range(4)]
     P, I, D = _lib.P, _lib.I, _lib.D
+    # form (a)'s scratch planes: the stresses at rho points
+    scratch = [torch.empty_like(ins[8]) for _ in range(2)] if TJ == 0 \
+        else []
     fn = _lib.func(f"roms_bulk_flux_{sfx}",
-                   [P] * 15 + [I] * 3 + [D] * 9 + [P])
-    rc = fn(*[_lib.ptr(x) for x in ins + outs], shp[0] * shp[1],
-            int(bool(cool_skin)), int(bool(coare35)), cfg.rho0,
-            constants.Cp, constants.g, constants.vonKar, cfg.blk_zw,
-            cfg.blk_zt, cfg.blk_zq, 1.0 / ribcu(cfg.blk_zw), _FC, P(stream))
+                   [P] * 17 + [I] * 7 + [D] * 9 + [P])
+    rc = fn(*[_lib.ptr(x) for x in ins + scratch],
+            *[P(None)] * (2 - len(scratch)),
+            *[_lib.ptr(x) for x in outs], Mj, Li, TJ, TI,
+            int(bool(cool_skin)), int(bool(coare35)),
+            int(cfg.blk_zt == cfg.blk_zq), cfg.rho0, constants.Cp,
+            constants.g, constants.vonKar, cfg.blk_zw, cfg.blk_zt,
+            cfg.blk_zq, 1.0 / ribcu(cfg.blk_zw), _FC, P(stream))
     _lib.launches["bulk_flux"] += 1
     _lib.check(rc, "bulk_flux")
-    Taux, Tauy, stT, stS = outs
-    return (*stagger_stress(cfg, Taux, Tauy), stT, stS)
+    return tuple(outs)

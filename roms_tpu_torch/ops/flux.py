@@ -1,9 +1,9 @@
 """Kernels 7 and 8: horizontal mass fluxes fused with the vertical mass flux
-(csrc/flux.cu), entry points `flux_omega` and `omega`.  flux_omega runs
-one CUDA block per tile of columns marching k, each level's u, v and Hz
-staged in shared memory and each mass flux formed once, its running sums
-kept in shared memory for the pass that writes W; omega one thread per
-column.
+(csrc/flux.cu), entry points `flux_omega` and `omega`, on one kernel body:
+one CUDA block per tile of columns marching k, each level staged in shared
+memory (flux_omega's u, v and Hz, each mass flux formed once; omega's
+given Huon and Hvom), the running sums kept in shared memory for the pass
+that writes W.
 
 Replaces roms_tpu/ops/pallas_flux.py `flux_omega_pallas` and
 `omega_pallas`.  The kernel and its plain version agree at every point:
@@ -20,25 +20,30 @@ import torch
 from ..config import CLOSED, GRADIENT
 from . import _lib, stencil as st
 
-# flux_omega's tile (rows, lanes): the tile grown by a row north and a
-# lane east, (TJ + 1) x (TI + 1) positions, has a thread a position
+# the tile (rows, lanes): the tile grown by a row north and a lane east,
+# (TJ + 1) x (TI + 1) positions, has a thread a position
 TILE = (7, 31)
 THREADS = 256
 STAGES = 3         # level buffers of the cp.async pipeline (csrc kStages)
 
 
-def launch_shape(N: int, Mj: int, Li: int, itemsize: int):
-    """(TJ, TI, blocks, dynamic shared memory bytes) of flux_omega's launch
-    (csrc/flux.cu flux_omega_kernel): the tiles of `_lib.seam_tiles`,
-    STAGES buffers of a level's Hz window (the tile grown by a row and a
-    lane each side), u (grown a lane east) and v (grown a row north), the
-    level's Huon and Hvom on the same positions as u and v, and the running
-    sums of levels 0..N-2 at each tile point."""
+def launch_shape(N: int, Mj: int, Li: int, itemsize: int,
+                 with_flux: bool = True):
+    """(TJ, TI, blocks, dynamic shared memory bytes) of a launch of
+    csrc/flux.cu flux_omega_kernel: the tiles of `_lib.seam_tiles`, STAGES
+    buffers of a level's staged planes and the running sums of levels
+    0..N-2 at each tile point.  flux_omega stages the Hz window (the tile
+    grown by a row and a lane each side), u (grown a lane east) and v
+    (grown a row north) and keeps the level's Huon and Hvom on the same
+    positions as u and v; omega (`with_flux=False`) stages the given Huon
+    and Hvom on u's and v's positions."""
     TJ, TI, blocks = _lib.seam_tiles(Mj, Li, TILE)
     nU, nV = TJ * (TI + 1), (TJ + 1) * TI
-    win = (TJ + 2) * (TI + 2) + nU + nV
-    smem = itemsize * (STAGES * win + nU + nV + (N - 1) * TJ * TI)
-    return TJ, TI, blocks, smem
+    if with_flux:
+        per = STAGES * ((TJ + 2) * (TI + 2) + nU + nV) + nU + nV
+    else:
+        per = STAGES * (nU + nV)
+    return TJ, TI, blocks, itemsize * (per + (N - 1) * TJ * TI)
 
 
 def covers(cfg) -> bool:
@@ -94,14 +99,13 @@ def _launch(name, cfg, sfx, stream, u, v, Hz, on_u, om_v, z_w, Huon, Hvom):
             x is not None and x.shape[-2:] != (Mj, Li)
             for x in (u, v, Hz, on_u, om_v)) or Li < 4 or Mj < 4:
         raise ValueError(f"{name}: inconsistent shapes")
-    TJ = TI = 0
-    if name == "flux_omega":
-        TJ, TI, _, smem = launch_shape(N, Mj, Li, Huon.element_size())
-        if smem > _lib.SMEM_PER_BLOCK or (TJ + 1) * (TI + 1) > THREADS:
-            raise ValueError(
-                f"flux_omega: {N} levels on a {TJ}x{TI} tile need {smem} B "
-                f"of shared memory (at most 227 KB) and {(TJ + 1) * (TI + 1)}"
-                f" threads (at most {THREADS})")
+    TJ, TI, _, smem = launch_shape(N, Mj, Li, Huon.element_size(),
+                                   name == "flux_omega")
+    if smem > _lib.SMEM_PER_BLOCK or (TJ + 1) * (TI + 1) > THREADS:
+        raise ValueError(
+            f"{name}: {N} levels on a {TJ}x{TI} tile need {smem} B of shared "
+            f"memory (at most 227 KB) and {(TJ + 1) * (TI + 1)} threads (at "
+            f"most {THREADS})")
     W = torch.empty_like(z_w)
     P, I = _lib.P, _lib.I
     fn = _lib.func(f"roms_flux_omega_{sfx}", [I] + [P] * 9 + [I] * 5 + [P])

@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
 from roms_tpu_torch.ops import (  # noqa: E402
-    _lib, flux, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, uvmix,
+    _lib, bulk, flux, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, uvmix,
     vdiff)
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
@@ -534,15 +534,22 @@ def test_flux_omega_and_tridiag_at_ragged_and_minimal_shapes(dtype):
     tile of one row; kernel 17 (cp and dp in shared memory) bitwise on
     seeded systems of 1 to 128 levels; one launch a call.  In float64 a
     flux_omega launch over a block's 227 KB raises before launching (one
-    level less launches)."""
+    level less launches).  Kernel 8 (omega on flux_omega's k-marching
+    tile) bitwise at FLUX_SHAPES, one launch a call, its float64 launch
+    over 227 KB raising likewise; kernel 13 (the bulk fluxes and the
+    staggered stresses in one C call) bitwise on planes of Mj = 4, 5 and
+    43 (an odd Li) in both stability regimes, with cool skin, COARE 3.5
+    and blk_zq other than blk_zt, one launch a call, in each form of
+    ops/bulk.py."""
     _need_card()
     for app, shape in cs.FLUX_SHAPES:
         env = cs.setup(torch, *shape, dtype, app=app)
-        args, _ = cs.entry_inputs(torch, "flux_omega", *env, 5)
-        before = _lib.launches["flux_omega"]
-        rel, _ = cs.compare(torch, "flux_omega", args, dtype)
-        assert rel == 0.0, (app, shape, dtype, rel)
-        assert _lib.launches["flux_omega"] == before + 1
+        for name in ("flux_omega", "omega"):
+            args, _ = cs.entry_inputs(torch, name, *env, 5)
+            before = _lib.launches[name]
+            rel, _ = cs.compare(torch, name, args, dtype)
+            assert rel == 0.0, (name, app, shape, dtype, rel)
+            assert _lib.launches[name] == before + 1
     for N in cs.TRIDIAG_DEPTHS:
         for Mj, Li in cs.TRIDIAG_PLANES:
             args = cs.tridiag_system(torch, N, Mj, Li, dtype)
@@ -551,14 +558,28 @@ def test_flux_omega_and_tridiag_at_ragged_and_minimal_shapes(dtype):
             assert rel == 0.0, (N, Mj, Li, dtype, rel)
             assert _lib.launches["tridiag"] == before + 1
     if dtype == "float64":
-        N = cs.flux_refused_depth(14, 31)
-        env = cs.setup(torch, 29, 12, N - 1, dtype, app="benchmark")
-        args, _ = cs.entry_inputs(torch, "flux_omega", *env, 5)
-        flux.flux_omega(*args)
-        env = cs.setup(torch, 29, 12, N, dtype, app="benchmark")
-        args, _ = cs.entry_inputs(torch, "flux_omega", *env, 5)
-        before = dict(_lib.launches)
-        with pytest.raises(ValueError, match="flux_omega"):
-            flux.flux_omega(*args)
-        assert _lib.launches == before
-
+        assert cs.flux_refused_depth(14, 31, with_flux=False) == 129
+        for name, call in (("flux_omega", flux.flux_omega),
+                           ("omega", flux.omega)):
+            N = cs.flux_refused_depth(14, 31, name == "flux_omega")
+            env = cs.setup(torch, 29, 12, N - 1, dtype, app="benchmark")
+            args, _ = cs.entry_inputs(torch, name, *env, 5)
+            call(*args)
+            env = cs.setup(torch, 29, 12, N, dtype, app="benchmark")
+            args, _ = cs.entry_inputs(torch, name, *env, 5)
+            before = dict(_lib.launches)
+            with pytest.raises(ValueError, match=name):
+                call(*args)
+            assert _lib.launches == before
+    shape = bulk.SHAPE
+    try:
+        for form in (shape, (16, 32)):
+            bulk.SHAPE = form
+            for label, args in cs.bulk_cases(torch, dtype,
+                                             cs.BULK_PLANES[1:]):
+                before = _lib.launches["bulk_flux"]
+                rel, _ = cs.compare(torch, "bulk_flux", args, dtype)
+                assert rel == 0.0, (form, label, dtype, rel)
+                assert _lib.launches["bulk_flux"] == before + 1
+    finally:
+        bulk.SHAPE = shape

@@ -1,5 +1,5 @@
 """Launch shapes of kernels 2 (tadv), 3 (rhs3d), 4 and 5 (uv_solve,
-uv_finish), 6 (spline_vdiff), 7 (flux_omega), 9 (prsgrd32), 10
+uv_finish), 6 (spline_vdiff), 7 and 8 (flux_omega, omega), 9 (prsgrd32), 10
 (uv3dmix2_s), 11 (the resident fast loop), 14 and 15 (the KPP and prep
 column), 16 (rot_div_geo) and 17 (tridiag) on the CPU: the tiles
 cover the grid, kernel 11's halo, and the dynamic shared memory each
@@ -357,40 +357,51 @@ def test_uvmix_tile_over_shared_memory_is_counted(monkeypatch):
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_flux_omega_launch_shape(itemsize):
-    """Kernel 7's tiles cover the grid with as few tiles of TILE as will do
-    (at least five lanes) and the one the half-tile shift puts on the seam
-    holds lanes Li-2 .. 1; the tile grown by a row north and a lane east
-    has a thread a position; the staged windows and the running sums of
-    levels 0..N-2 fit a block up to 64 levels, and at BENCHMARK3's and
-    UPWELLING's depths six float32 blocks fit an SM; the shallowest depth
-    over a block is counted (the wrapper raises on it)."""
+    """Kernels 7 and 8 (flux_omega and omega, one kernel body): the tiles
+    cover the grid with as few tiles of TILE as will do (at least five
+    lanes) and the one the half-tile shift puts on the seam holds lanes
+    Li-2 .. 1; the tile grown by a row north and a lane east has a thread
+    a position; flux_omega's staged windows and omega's staged fluxes,
+    with the running sums of levels 0..N-2, fit a block up to 64 levels,
+    and at BENCHMARK3's and UPWELLING's depths six float32 blocks of
+    either fit an SM; the shallowest depth over a block is counted (the
+    wrapper raises on it): omega's at N = 129 in float64 and 263 in
+    float32 on 7 x 31 tiles."""
     tile = flux.TILE
     for Mj, Li in [s for s in SHAPES if min(s) >= 4]:
         for N in (1, 2, 16, 30, 64):
-            TJ, TI, blocks, smem = flux.launch_shape(N, Mj, Li, itemsize)
-            assert blocks == -(-Mj // TJ) * -(-Li // TI)
-            assert TJ <= tile[0] and min(Li, 5) <= TI <= max(tile[1], 5)
-            if TI >= 5:
-                assert -(-Mj // TJ) == -(-Mj // tile[0])
-                assert -(-Li // TI) == -(-Li // tile[1])
-            seam = {(i - TI // 2) % Li for i in range(min(TI, Li))}
-            assert {Li - 2, Li - 1, 0, 1} <= seam, (Mj, Li)
-            assert (TJ + 1) * (TI + 1) <= flux.THREADS
-            nU, nV = TJ * (TI + 1), (TJ + 1) * TI
-            win = (TJ + 2) * (TI + 2) + nU + nV
-            assert smem == itemsize * (flux.STAGES * win + nU + nV
-                                       + (N - 1) * TJ * TI)
-            assert smem <= _lib.SMEM_PER_BLOCK
+            for with_flux in (True, False):
+                TJ, TI, blocks, smem = flux.launch_shape(N, Mj, Li, itemsize,
+                                                         with_flux)
+                assert blocks == -(-Mj // TJ) * -(-Li // TI)
+                assert TJ <= tile[0] and min(Li, 5) <= TI <= max(tile[1], 5)
+                if TI >= 5:
+                    assert -(-Mj // TJ) == -(-Mj // tile[0])
+                    assert -(-Li // TI) == -(-Li // tile[1])
+                seam = {(i - TI // 2) % Li for i in range(min(TI, Li))}
+                assert {Li - 2, Li - 1, 0, 1} <= seam, (Mj, Li)
+                assert (TJ + 1) * (TI + 1) <= flux.THREADS
+                nU, nV = TJ * (TI + 1), (TJ + 1) * TI
+                win = (TJ + 2) * (TI + 2) + nU + nV
+                staged = flux.STAGES * win + nU + nV if with_flux else \
+                    flux.STAGES * (nU + nV)
+                assert smem == itemsize * (staged + (N - 1) * TJ * TI)
+                assert smem <= _lib.SMEM_PER_BLOCK
     if itemsize == 4:
         for shape, N in [(FULL[0], 30), (FULL[1], 16)]:
-            *_, blocks, smem = flux.launch_shape(N, *shape, 4)
-            assert blocks >= 6 * SMS
-            assert 6 * (smem + 1024) <= SMEM_PER_SM
-    N = 2
-    while flux.launch_shape(N, *FULL[0], itemsize)[3] <= _lib.SMEM_PER_BLOCK:
-        N += 1
-    assert N > 64 and flux.launch_shape(N, *FULL[0], itemsize)[3] > \
-        _lib.SMEM_PER_BLOCK
+            for with_flux in (True, False):
+                *_, blocks, smem = flux.launch_shape(N, *shape, 4, with_flux)
+                assert blocks >= 6 * SMS
+                assert 6 * (smem + 1024) <= SMEM_PER_SM
+    for with_flux, refused in ((True, None), (False, {8: 129, 4: 263})):
+        N = 2
+        while flux.launch_shape(N, *FULL[0], itemsize,
+                                with_flux)[3] <= _lib.SMEM_PER_BLOCK:
+            N += 1
+        assert N > 64 and flux.launch_shape(
+            N, *FULL[0], itemsize, with_flux)[3] > _lib.SMEM_PER_BLOCK
+        if refused:
+            assert N == refused[itemsize]
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
