@@ -149,7 +149,7 @@ def main():
     print(_lib.ptxas_report(), flush=True)
     ptxas_summary(("kpp_kernel", "vdiff_kernel", "uv_finish_kernel",
                    "uvmix_kernel", "flux_omega_kernel", "tridiag_kernel",
-                   "bulk_kernel", "stagger_kernel", "bulk_tile_kernel"))
+                   "bulk_kernel", "stagger_kernel"))
     _lib.lib()
 
     full = [app for app in APPS if APPS[app]["full"]]
@@ -1690,8 +1690,8 @@ PREP_THREADS_TRIED = (32, 64, 96, 128)
 VDIFF_THREADS_TRIED = (64, 96, 128, 192, 256)
 FLUX_TILES = ((7, 31), (15, 15), (3, 63), (7, 15))
 TRIDIAG_THREADS_TRIED = (64, 128, 192, 256)
-# ops/bulk.py SHAPE: form (a) at three block sizes, form (b) at two tiles
-BULK_SHAPES = (128, 256, 512, (8, 32), (16, 32))
+# ops/bulk.py SHAPE: threads a block of the bulk and staggering kernels
+BULK_THREADS_TRIED = (128, 256, 512)
 
 
 def launch_shapes(torch, app):
@@ -1701,8 +1701,8 @@ def launch_shapes(torch, app):
     each of TADV_TILES, prsgrd's and uvmix's with each of PRSGRD_TILES
     and UVMIX_TILES, and prep's and spline_vdiff's with each block size of
     PREP_THREADS_TRIED and VDIFF_THREADS_TRIED, flux_omega's and omega's
-    with each of FLUX_TILES, bulk_flux's in each form and shape of
-    BULK_SHAPES and tridiag's with each block size of
+    with each of FLUX_TILES, bulk_flux's with each block size of
+    BULK_THREADS_TRIED and tridiag's with each block size of
     TRIDIAG_THREADS_TRIED at the app's full width, float32, each output
     bitwise against the chosen shape's."""
     from roms_tpu_torch.ops import (bulk, flux, kpp, prsgrd, rhs3d, tadv,
@@ -1728,7 +1728,7 @@ def launch_shapes(torch, app):
              lambda x: vdiff.VDIFF_THREADS.__setitem__(4, x)),
             ("flux_omega", FLUX_TILES, *tile_of(flux)),
             ("omega", FLUX_TILES, *tile_of(flux)),
-            ("bulk_flux", BULK_SHAPES, lambda: bulk.SHAPE,
+            ("bulk_flux", BULK_THREADS_TRIED, lambda: bulk.SHAPE,
              lambda x: setattr(bulk, "SHAPE", x)),
             ("tridiag", TRIDIAG_THREADS_TRIED, lambda: tridiag.THREADS[4],
              lambda x: tridiag.THREADS.__setitem__(4, x))):
@@ -1832,7 +1832,7 @@ def profile_step(torch, app):
         "rho_kernel", "tadv_kernel", "rhs3d_kernel", "uv_solve_kernel",
         "uv_finish_kernel", "vdiff_kernel", "flux_omega_kernel",
         "prsgrd_kernel", "uvmix_kernel", "half_step", "bulk_kernel",
-        "stagger_kernel", "bulk_tile_kernel", "kpp_kernel",
+        "stagger_kernel", "kpp_kernel",
         "rot_div_geo_kernel", "tridiag_kernel", "blocked_kernel"))]
     ours_us = sum(e.self_device_time_total for e in ours)
     print(f"{app} the port's CUDA kernels: {ours_us / 1e3:.3f} ms device "

@@ -27,17 +27,13 @@
 // branch of the point's regime, where the plain version builds both and
 // selects one.
 //
-// Two forms (ops/bulk.py SHAPE):
-//   (a) bulk_kernel writes the rho-point stresses to two scratch planes,
-//       and stagger_kernel, launched after it on the same stream, forms
-//       sustr = 0.5*(Taux + im1(Taux))*(1/rho0) and svstr likewise with
-//       jm1, both rolls wrapping as torch.roll wraps;
-//   (b) bulk_tile_kernel computes the points of a TJ x TI tile and the
-//       stresses of its west lane and south row (a second point for a
-//       few threads), keeps the stresses in shared memory and writes
-//       sustr and svstr itself.
-// The staggering's products are mul_rn in the plain version's order (add,
-// times 0.5, times 1/rho0 rounded to T as PyTorch rounds a Python scalar).
+// The stresses go to U and V points in a second kernel: bulk_kernel writes
+// the rho-point stresses to two scratch planes, and stagger_kernel,
+// launched after it on the same stream by the same C entry, forms
+// sustr = 0.5*(Taux + im1(Taux))*(1/rho0) and svstr likewise with jm1,
+// both rolls wrapping as torch.roll wraps.  The products are mul_rn in the
+// plain version's order (add, times 0.5, times 1/rho0 rounded to T as
+// PyTorch rounds a Python scalar).
 #include "common.cuh"
 
 namespace {
@@ -362,7 +358,7 @@ __device__ __forceinline__ T stagger(T a, T b, T o_rho0) {
   return mul_rn(mul_rn(T(0.5), a + b), o_rho0);
 }
 
-// form (a), first kernel: the rho-point stresses to scratch planes
+// first kernel: the rho-point stresses to scratch planes
 template <typename T, bool kSameTQ>
 __global__ void __launch_bounds__(kMaxThreads)
 bulk_kernel(const __grid_constant__ BulkIn<T> in, T* __restrict__ taux,
@@ -377,7 +373,7 @@ bulk_kernel(const __grid_constant__ BulkIn<T> in, T* __restrict__ taux,
   stS[c] = o.stS;
 }
 
-// form (a), second kernel: the stresses to U and V points
+// second kernel: the stresses to U and V points
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 stagger_kernel(const T* __restrict__ taux, const T* __restrict__ tauy,
@@ -391,90 +387,28 @@ stagger_kernel(const T* __restrict__ taux, const T* __restrict__ tauy,
   svstr[c] = stagger(tauy[c], tauy[wrap(j - 1, Mj) * Li + i], o_rho0);
 }
 
-// form (b): a TJ x TI tile a block of TJ * TI threads, the stresses of the
-// tile grown a lane west and a row south in shared memory
-template <typename T, bool kSameTQ>
-__global__ void __launch_bounds__(kMaxThreads)
-bulk_tile_kernel(const __grid_constant__ BulkIn<T> in, T* __restrict__ sustr,
-                 T* __restrict__ svstr, T* __restrict__ stT,
-                 T* __restrict__ stS, int Mj, int Li, int TJ, int TI,
-                 const __grid_constant__ BulkParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int GI = TI + 1;   // stride of the grown tile
-  T* sx = reinterpret_cast<T*>(smem);   // Taux at (yy + 1, xx + 1)
-  T* sy = sx + (TJ + 1) * GI;           // Tauy
-  const int j0 = blockIdx.y * TJ, i0 = blockIdx.x * TI;
-  const int tj = min(TJ, Mj - j0), ti = min(TI, Li - i0);
-  const int tx = threadIdx.x, yy = tx / TI, xx = tx - yy * TI;
-  const bool mine = yy < tj && xx < ti;
-  const int c = (j0 + yy) * Li + i0 + xx;
-  // pass 0 this thread's point; pass 1, for the first tj + ti threads, a
-  // point of the west lane (its Taux is read) or of the south row (its
-  // Tauy), the rolls wrapping; one call site, so the body is inlined once
-#pragma unroll 1
-  for (int pass = 0; pass < 2; ++pass) {
-    int at, cc;
-    if (pass == 0) {
-      if (!mine) continue;
-      at = (yy + 1) * GI + xx + 1;
-      cc = c;
-    } else if (tx < tj) {
-      at = (tx + 1) * GI;
-      cc = (j0 + tx) * Li + wrap(i0 - 1, Li);
-    } else if (tx < tj + ti) {
-      at = tx - tj + 1;
-      cc = wrap(j0 - 1, Mj) * Li + i0 + tx - tj;
-    } else {
-      break;
-    }
-    const BulkOut<T> o = bulk_point<T, kSameTQ>(in, cc, p);
-    sx[at] = o.taux;
-    sy[at] = o.tauy;
-    if (pass == 0) {
-      stT[c] = o.stT;
-      stS[c] = o.stS;
-    }
-  }
-  __syncthreads();
-  if (!mine) return;
-  const T o_rho0 = T(1.0 / p.rho0);
-  const int at = (yy + 1) * GI + xx + 1;
-  sustr[c] = stagger(sx[at], sx[at - 1], o_rho0);
-  svstr[c] = stagger(sy[at], sy[at - GI], o_rho0);
-}
-
 template <typename T, bool kSameTQ>
 int launch(const BulkIn<T>& in, T* taux, T* tauy, T* sustr, T* svstr,
-           T* stT, T* stS, int Mj, int Li, int TJ, int TI,
-           const BulkParams& p, cudaStream_t st) {
-  const int P = Mj * Li;
-  if (TJ == 0) {
-    // form (a): TI threads a block
-    if (TI < 32 || TI > kMaxThreads)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int blocks = (P + TI - 1) / TI;
-    bulk_kernel<T, kSameTQ><<<blocks, TI, 0, st>>>(in, taux, tauy, stT, stS,
-                                                   P, p);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    stagger_kernel<T><<<blocks, TI, 0, st>>>(taux, tauy, sustr, svstr, Mj, Li,
-                                             p.rho0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // form (b): TJ x TI tiles
-  if (TJ * TI > kMaxThreads || TJ * TI < TJ + TI)
+           T* stT, T* stS, int Mj, int Li, int threads, const BulkParams& p,
+           cudaStream_t st) {
+  if (threads < 32 || threads > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * sizeof(T) * (TJ + 1) * (TI + 1);
-  const dim3 grid((Li + TI - 1) / TI, (Mj + TJ - 1) / TJ);
-  bulk_tile_kernel<T, kSameTQ><<<grid, TJ * TI, smem, st>>>(
-      in, sustr, svstr, stT, stS, Mj, Li, TJ, TI, p);
+  const int P = Mj * Li;
+  const int blocks = (P + threads - 1) / threads;
+  bulk_kernel<T, kSameTQ><<<blocks, threads, 0, st>>>(in, taux, tauy, stT,
+                                                      stS, P, p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stagger_kernel<T><<<blocks, threads, 0, st>>>(taux, tauy, sustr, svstr, Mj,
+                                                Li, p.rho0);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// TJ == 0: form (a), TI threads a block, the rho-point stresses in the
-// scratch planes taux and tauy; TJ > 0: form (b) on TJ x TI tiles
+// threads a block for both kernels; taux and tauy are scratch planes for
+// the rho-point stresses.  With zt == zq the humidity shares the
+// temperature's stability function (kSameTQ).
 #define ROMS_BULK_ENTRY(NAME, T)                                             \
   extern "C" int NAME(const void* Uwind, const void* Vwind,                 \
                       const void* Tair, const void* Pair, const void* Hair, \
@@ -482,10 +416,10 @@ int launch(const BulkIn<T>& in, T* taux, T* tauy, T* sustr, T* svstr,
                       const void* srflx, const void* sst, const void* sss,  \
                       const void* rho_surf, void* taux, void* tauy,         \
                       void* sustr, void* svstr, void* stT, void* stS,       \
-                      int Mj, int Li, int TJ, int TI, int cool_skin,        \
-                      int coare35, int same_tq, double rho0, double Cp,     \
-                      double g, double vonKar, double zw, double zt,        \
-                      double zq, double o_ribcu, double Fc, void* stream) { \
+                      int Mj, int Li, int threads, int cool_skin,           \
+                      int coare35, double rho0, double Cp, double g,        \
+                      double vonKar, double zw, double zt, double zq,       \
+                      double o_ribcu, double Fc, void* stream) {            \
     const BulkIn<T> in{                                                     \
         static_cast<const T*>(Uwind), static_cast<const T*>(Vwind),         \
         static_cast<const T*>(Tair),  static_cast<const T*>(Pair),          \
@@ -499,11 +433,12 @@ int launch(const BulkIn<T>& in, T* taux, T* tauy, T* sustr, T* svstr,
                        static_cast<T*>(sustr), static_cast<T*>(svstr),      \
                        static_cast<T*>(stT),   static_cast<T*>(stS)};       \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                    \
-    return same_tq ? launch<T, true>(in, out[0], out[1], out[2], out[3],    \
-                                     out[4], out[5], Mj, Li, TJ, TI, p, st) \
-                   : launch<T, false>(in, out[0], out[1], out[2], out[3],   \
-                                      out[4], out[5], Mj, Li, TJ, TI, p,    \
-                                      st);                                  \
+    return zt == zq ? launch<T, true>(in, out[0], out[1], out[2], out[3],   \
+                                      out[4], out[5], Mj, Li, threads, p,   \
+                                      st)                                   \
+                    : launch<T, false>(in, out[0], out[1], out[2], out[3],  \
+                                       out[4], out[5], Mj, Li, threads, p,  \
+                                       st);                                 \
   }
 
 ROMS_BULK_ENTRY(roms_bulk_flux_f32, float)

@@ -20,10 +20,7 @@ from . import _lib
 # AtmState fields in the kernel's argument order
 FIELDS = ("Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
           "srflx")
-# the launch: an int is form (a), that many threads a block (the bulk
-# kernel writes the rho-point stresses to scratch planes, a second kernel
-# staggers them); a pair (TJ, TI) is form (b), one block a tile that also
-# computes its west lane's and south row's stresses
+# threads a block of the bulk kernel and of the staggering kernel after it
 SHAPE = 256
 
 
@@ -54,25 +51,20 @@ def bulk_flux(cfg, atm, sst, sss, rho_surf, cool_skin=False,
 
 
 def _launch(cfg, sfx, stream, ins, cool_skin, coare35):
-    """One C call: the bulk fluxes and the staggered stresses, in the
-    form SHAPE picks; returns (sustr, svstr, stflx_T, stflx_S)."""
+    """One C call: the bulk kernel writes the rho-point stresses to two
+    scratch planes and a second kernel staggers them; returns (sustr,
+    svstr, stflx_T, stflx_S)."""
     from ..core.bulk_flux import _FC, ribcu
     Mj, Li = ins[8].shape
-    TJ, TI = (0, SHAPE) if isinstance(SHAPE, int) else SHAPE
+    scratch = [torch.empty_like(ins[8]) for _ in range(2)]
     outs = [torch.empty_like(ins[8]) for _ in range(4)]
     P, I, D = _lib.P, _lib.I, _lib.D
-    # form (a)'s scratch planes: the stresses at rho points
-    scratch = [torch.empty_like(ins[8]) for _ in range(2)] if TJ == 0 \
-        else []
     fn = _lib.func(f"roms_bulk_flux_{sfx}",
-                   [P] * 17 + [I] * 7 + [D] * 9 + [P])
-    rc = fn(*[_lib.ptr(x) for x in ins + scratch],
-            *[P(None)] * (2 - len(scratch)),
-            *[_lib.ptr(x) for x in outs], Mj, Li, TJ, TI,
-            int(bool(cool_skin)), int(bool(coare35)),
-            int(cfg.blk_zt == cfg.blk_zq), cfg.rho0, constants.Cp,
-            constants.g, constants.vonKar, cfg.blk_zw, cfg.blk_zt,
-            cfg.blk_zq, 1.0 / ribcu(cfg.blk_zw), _FC, P(stream))
+                   [P] * 17 + [I] * 5 + [D] * 9 + [P])
+    rc = fn(*[_lib.ptr(x) for x in ins + scratch + outs], Mj, Li, SHAPE,
+            int(bool(cool_skin)), int(bool(coare35)), cfg.rho0,
+            constants.Cp, constants.g, constants.vonKar, cfg.blk_zw,
+            cfg.blk_zt, cfg.blk_zq, 1.0 / ribcu(cfg.blk_zw), _FC, P(stream))
     _lib.launches["bulk_flux"] += 1
     _lib.check(rc, "bulk_flux")
     return tuple(outs)

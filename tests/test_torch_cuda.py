@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import chip_smoke as cs  # noqa: E402
 from roms_tpu_torch.functionals import idealized as tia  # noqa: E402
 from roms_tpu_torch.ops import (  # noqa: E402
-    _lib, bulk, flux, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, uvmix,
+    _lib, flux, hmix, kpp, prep, prsgrd, rhs3d, step2d, tadv, uv, uvmix,
     vdiff)
 
 # the seven closed-basin entry points on DOUBLE_GYRE, the twelve of the
@@ -539,8 +539,7 @@ def test_flux_omega_and_tridiag_at_ragged_and_minimal_shapes(dtype):
     over 227 KB raising likewise; kernel 13 (the bulk fluxes and the
     staggered stresses in one C call) bitwise on planes of Mj = 4, 5 and
     43 (an odd Li) in both stability regimes, with cool skin, COARE 3.5
-    and blk_zq other than blk_zt, one launch a call, in each form of
-    ops/bulk.py."""
+    and blk_zq other than blk_zt, one launch a call."""
     _need_card()
     for app, shape in cs.FLUX_SHAPES:
         env = cs.setup(torch, *shape, dtype, app=app)
@@ -571,15 +570,8 @@ def test_flux_omega_and_tridiag_at_ragged_and_minimal_shapes(dtype):
             with pytest.raises(ValueError, match=name):
                 call(*args)
             assert _lib.launches == before
-    shape = bulk.SHAPE
-    try:
-        for form in (shape, (16, 32)):
-            bulk.SHAPE = form
-            for label, args in cs.bulk_cases(torch, dtype,
-                                             cs.BULK_PLANES[1:]):
-                before = _lib.launches["bulk_flux"]
-                rel, _ = cs.compare(torch, "bulk_flux", args, dtype)
-                assert rel == 0.0, (form, label, dtype, rel)
-                assert _lib.launches["bulk_flux"] == before + 1
-    finally:
-        bulk.SHAPE = shape
+    for label, args in cs.bulk_cases(torch, dtype, cs.BULK_PLANES[1:]):
+        before = _lib.launches["bulk_flux"]
+        rel, _ = cs.compare(torch, "bulk_flux", args, dtype)
+        assert rel == 0.0, (label, dtype, rel)
+        assert _lib.launches["bulk_flux"] == before + 1
