@@ -8,15 +8,15 @@
                                      # rhs3d's, uv_solve's, uv_finish's,
                                      # tadv's, prsgrd's, uvmix's, prep's,
                                      # spline_vdiff's, flux_omega's,
-                                     # omega's, tridiag's and bulk_flux's
-                                     # time by launch shape
+                                     # omega's, tridiag's, bulk_flux's and
+                                     # kernel 12's time by launch shape
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit; build of the CUDA kernels from
      roms_tpu_torch/csrc (one nvcc per source, all started together),
      the registers and stack frame of the column sweeps (kernels 5, 6,
      14, 15 and 17), of the uvmix and flux_omega tiles (kernels 10, 7
-     and 8) and of the bulk-flux kernels (13);
+     and 8), of the bulk-flux kernels (13) and of kernel 12;
   2. kernel phase: each kernel entry point against its plain PyTorch
      version on the card, same inputs, float64 (rel <= 1e-12; the fast
      loop, 2 x 42 substeps, 1e-11) and float32 (rel <= 1e-5), on seeded
@@ -33,8 +33,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      MY2.5 step at the same sizes; the j-blocked fast loop (kernel 12) on
      the UPWELLING and BENCHMARK3 states (the latter's nfast = 29 odd),
      float64 rel <= 1e-11, with its difference from the resident fast
-     loop (kernel 11) on the same inputs, and on 4-lane channels (Li = 4,
-     Mj = 4 and 5, 42 substeps); the redesigned tadv (kernel 2, both
+     loop (kernel 11) on the same inputs; the redesigned kernel 12 bitwise
+     against kernel 11 and within the tolerance of the plain loop in both
+     types at BLOCKED_SHAPES (the full-width shapes, a ragged grid with a
+     one-row last tile, 4- and 5-lane channels of Mj = 4 and 5, 42
+     substeps) from iic 0, 1 and 5; the redesigned tadv (kernel 2, both
      modes, 1, 2 and 5 tracers), rhs3d (kernel 3) and uv_solve (kernel
      4) on ragged grids and at minimal depths (N = 3 and 4), closed and
      EW-periodic, tadv's predictor and uv_solve from iic 0, 1 and 5,
@@ -55,8 +58,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      tracers with one or two Akt profiles and bitwise, each redesign line
      saying whether it is bitwise, and the float64 launches over a
      block's shared memory refused (the tiled kernels with a (64, 128)
-     tile, the column sweeps and flux_omega's and omega's running sums
-     at the shallowest depth over it);
+     tile, kernel 12 with the float32 tile, the column sweeps and
+     flux_omega's and omega's running sums at the shallowest depth over
+     it);
   3. slice parity, kernels vs `Model(use_kernels=False)`, float64, 5
      steps, within 1e-10*max|x| + 5e-14: DOUBLE_GYRE Lm=64, Mm=128, N=10,
      UPWELLING Lm=48, Mm=64, N=16 with the analytic, the GLS
@@ -76,8 +80,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      finite fields, interior volume, the KPP boundary layer inside the
      water column); BENCHMARK3 and UPWELLING again with the j-blocked
      fast loop (15 and 21 launches of kernel 12 a step, none of kernel
-     11) and the fast loop's own time inside the step under each engine;
-     then each kernel's time at its path's full-width
+     11), the fast loop's own time inside the step under each engine,
+     and kernel 12's design floor and device scratch; then each kernel's
+     time at its path's full-width
      shapes next to its plain version, its bound (for the bulk fluxes
      the larger of its bytes and its issue floor, the warp instructions
      on the shortest path through its SASS over the card's issue rate)
@@ -149,7 +154,7 @@ def main():
     print(_lib.ptxas_report(), flush=True)
     ptxas_summary(("kpp_kernel", "vdiff_kernel", "uv_finish_kernel",
                    "uvmix_kernel", "flux_omega_kernel", "tridiag_kernel",
-                   "bulk_kernel", "stagger_kernel"))
+                   "bulk_kernel", "stagger_kernel", "blocked_kernel"))
     _lib.lib()
 
     full = [app for app in APPS if APPS[app]["full"]]
@@ -191,7 +196,9 @@ def main():
 
 def ptxas_summary(kernels):
     """One line per compiled kernel whose name starts with one of
-    `kernels`: its registers and stack frame from `ptxas -v`."""
+    `kernels`: its registers and stack frame from `ptxas -v` (the first
+    of each under the kernel's name; the lines of a function it calls
+    follow them)."""
     import re
     from roms_tpu_torch.ops import _lib
     name, seen = None, {}
@@ -205,7 +212,8 @@ def ptxas_summary(kernels):
                              ("stack", r"(\d+) bytes stack frame")):
                 m = re.search(pat, text)
                 if m:
-                    seen.setdefault(name, {})[key] = int(m.group(1))
+                    seen.setdefault(name, {}).setdefault(key,
+                                                         int(m.group(1)))
     for name, r in seen.items():
         print(f"ptxas {name}: {r.get('registers')} registers, "
               f"{r.get('stack')} bytes stack frame", flush=True)
@@ -703,6 +711,15 @@ COLUMN_SHAPES = REDESIGN_SHAPES + [("upwelling", (2, 2, 2))]
 # spline_vdiff's (NT, NAT): one, two and five tracers diffused with one or
 # two Akt profiles (tracers past NAT take the last one's)
 VDIFF_TRACERS = [(NT, NAT) for NT in (1, 2, 5) for NAT in (1, 2)]
+# kernel 12's (app, (Lm, Mm)): the full-width BENCHMARK3 and UPWELLING
+# planes, a ragged channel whose last row tile has one row in both types
+# (Mj = 1601: 40 tiles of 40 rows and one of one in float32, 100 of 16
+# and one of one in float64), and the 4- and 5-lane channels of Mj = 4
+# and 5
+BLOCKED_SHAPES = [("benchmark", (2048, 256)), ("upwelling", (512, 1024)),
+                  ("upwelling", (38, 1599)), ("upwelling", (2, 2)),
+                  ("upwelling", (2, 3)), ("upwelling", (3, 2)),
+                  ("upwelling", (3, 3))]
 
 
 def with_tracers(torch, args, NT):
@@ -774,10 +791,11 @@ def redesign_checks(torch):
     and kernel 17 on seeded systems of TRIDIAG_DEPTHS (all bitwise);
     kernels 6, 14 and 15 at COLUMN_SHAPES (spline_vdiff at VDIFF_TRACERS,
     bitwise; KPP's boundary layer column by column, both forcing regimes
-    and columns with and without a crossing); kernel 12 on 4-lane
-    channels; the float64 launches over shared memory refused."""
-    from roms_tpu_torch.ops import (_lib, flux, kpp, prsgrd, rhs3d, tadv, uv,
-                                    uvmix, vdiff)
+    and columns with and without a crossing); kernel 12 at BLOCKED_SHAPES
+    (bitwise against kernel 11); the float64 launches over shared memory
+    refused."""
+    from roms_tpu_torch.ops import (_lib, flux, kpp, prsgrd, rhs3d, step2d,
+                                    tadv, uv, uvmix, vdiff)
     for app, (Lm, Mm, N) in REDESIGN_SHAPES:
         for dtype in ("float64", "float32"):
             env = setup(torch, Lm, Mm, N, dtype, app=app)
@@ -869,15 +887,16 @@ def redesign_checks(torch):
                                     f"{NT} NAT={NAT}: max rel {rel:.3e}, not "
                                     "bitwise equal to its plain version")
             del env
-    for Mm in (2, 3):
-        env = setup(torch, 2, Mm, 4, "float64", app="upwelling")
-        for iic in (0, 5):
-            args, _ = entry_inputs(torch, "fast_loop_blocked", *env, iic)
-            rel, abs_err = compare(torch, "fast_loop_blocked", args,
-                                   "float64")
-            print(f"kernel 4-lane channel fast_loop_blocked float64 Mj="
-                  f"{Mm + 2} Li=4 nfast={args[2]} iic={iic}: max rel "
-                  f"{rel:.3e} max abs {abs_err:.3e}", flush=True)
+    for dtype in ("float64", "float32"):
+        for label, args in blocked_cases(torch, dtype):
+            rel, abs_err, same = blocked_check(torch, args, dtype)
+            print(f"kernel redesign {label} fast_loop_blocked {dtype}: max "
+                  f"rel {rel:.3e} max abs {abs_err:.3e} against the plain "
+                  f"loop; against kernel 11 {bitwise(0.0 if same else 1.0)}",
+                  flush=True)
+            if not same:
+                FAILURES.append(f"fast_loop_blocked {dtype} {label}: not "
+                                "bitwise equal to kernel 11")
     env = setup(torch, 10, 8, 120, "float64", app="upwelling")
     args, _ = entry_inputs(torch, "uv_solve", *env, 5)
     refusals = [("uv_solve N=120", lambda: uv.uv_solve(*args))]
@@ -905,6 +924,19 @@ def redesign_checks(torch):
         ("prsgrd32 tile (64, 128)", big_tile(prsgrd, prsgrd.prsgrd32, argsp)),
         ("uv3dmix2_s tile (64, 128)", big_tile(uvmix, uvmix.uv3dmix2_s,
                                                argsm))]
+    # kernel 12 in float64 with the float32 tile's window
+    env = setup(torch, 126, 62, 3, "float64", app="upwelling")
+    argsb, _ = entry_inputs(torch, "fast_loop_blocked", *env, 5)
+
+    def blocked_big():
+        tile = step2d.TILE_BLOCKED[8]
+        step2d.TILE_BLOCKED[8] = step2d.TILE_BLOCKED[4]
+        try:
+            return step2d.fast_loop_blocked(*argsb)
+        finally:
+            step2d.TILE_BLOCKED[8] = tile
+    refusals.append((f"fast_loop_blocked tile {step2d.TILE_BLOCKED[4]}",
+                     blocked_big))
     # the column sweeps at the shallowest float64 depth whose state
     # exceeds a block's shared memory
     for name, smem_of, call in (
@@ -1024,6 +1056,35 @@ def engine_diff(torch, args):
     b = outputs(step2d.fast_loop_res(*args))
     return max(float((x - y).abs().max() / (y.abs().max() + 1e-300))
                for x, y in zip(a, b))
+
+
+def blocked_cases(torch, dtype, shapes=None, iics=(0, 1, 5)):
+    """(label, args) of kernel 12 at BLOCKED_SHAPES (or `shapes`) from each
+    of `iics`, on seeded zonally varying fast-loop inputs (N = 4; the
+    app's nfast: 29 on BENCHMARK3, 42 on the channel)."""
+    for app, (Lm, Mm) in shapes or BLOCKED_SHAPES:
+        env = setup(torch, Lm, Mm, 4, dtype, app=app)
+        for iic in iics:
+            args, _ = entry_inputs(torch, "fast_loop_blocked", *env, iic)
+            yield (f"{app:11s} Mj={Mm + 2} Li={Lm + 2} nfast={args[2]} "
+                   f"iic={iic}"), args
+        del env
+
+
+def blocked_check(torch, args, dtype):
+    """Kernel 12 against its plain loop (compare; one launch per chunk) and
+    against kernel 11 on the same inputs: (max rel, max abs, bitwise equal
+    to kernel 11)."""
+    from roms_tpu_torch.ops import _lib, step2d
+    before = _lib.launches["fast_loop_blocked"]
+    rel, abs_err = compare(torch, "fast_loop_blocked", args, dtype)
+    n = _lib.launches["fast_loop_blocked"] - before
+    if n != len(step2d.chunk_schedule(args[2])):
+        FAILURES.append(f"fast_loop_blocked: {n} launches for nfast "
+                        f"{args[2]}")
+    a = outputs(step2d.fast_loop_blocked(*args))
+    b = outputs(step2d.fast_loop_res(*args))
+    return rel, abs_err, all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def closure_systems(torch, app, Lm, Mm, N, dtype):
@@ -1637,16 +1698,33 @@ def kernel_table(torch, app, counts):
                   f"{smem} B dynamic shared memory a block ({vals} values a "
                   f"thread, {how})", flush=True)
         if name == "fast_loop_blocked":
-            # its own design's floor: each launch reads the carry and the
-            # statics and writes the carry
-            from roms_tpu_torch.ops.step2d import chunk_schedule
-            nl = len(chunk_schedule(args[2]))
-            per = (2 * 16 + 28) * outs[0].numel() * outs[0].element_size()
+            # its own design's floor: each launch reads the carry (16
+            # planes) and the statics (28) and writes the carry (16) once;
+            # zeta, zeta_prev, ubar and vbar are read over the windows,
+            # the statics' halo comes from L2, and the rhs histories stay
+            # in device scratch (L2)
+            from roms_tpu_torch.ops import _lib, step2d
+            nl = len(step2d.chunk_schedule(args[2]))
+            Mj, Li = outs[0].shape
+            size = outs[0].element_size()
+            per = (2 * 16 + 28) * outs[0].numel() * size
+            TJ, TI, HJ, HI, blocks, smem = step2d.blocked_launch_shape(
+                Mj, Li, size)
+            slots = min(blocks, step2d.blocked_slots(
+                _lib.suffix(outs[0].dtype), TJ, TI, HJ, HI))
+            elems = step2d.blocked_scratch(TJ, TI, Li)
+            win = (TJ + 2 * HJ) * (TI + 2 * HI) / (TJ * TI)
             print(f"{app} fast_loop_blocked per launch: {ms / nl:.4f} ms "
                   f"over {nl} launches; 60 planes, {per / 1e6:.1f} MB a "
                   f"launch -> {1e3 * per / HBM_BYTES_PER_S:.4f} ms, "
-                  f"{nl * 1e3 * per / HBM_BYTES_PER_S:.4f} ms a call",
-                  flush=True)
+                  f"{nl * 1e3 * per / HBM_BYTES_PER_S:.4f} ms a call "
+                  f"(design floor); tile {TJ}x{TI}, halo {HJ}/{HI}, window "
+                  f"{win:.3f}x the tile, {step2d.BLOCKED_WIN_PLANES} window "
+                  f"planes in {smem} B dynamic shared memory a block, "
+                  f"{blocks} tiles on {slots} blocks", flush=True)
+            print(f"{app} fast_loop_blocked device scratch: "
+                  f"{slots * elems * size} B ({slots} blocks x {elems} "
+                  f"elements x {size} B)", flush=True)
         table.append(row)
     del env
     torch.cuda.empty_cache()
@@ -1689,6 +1767,9 @@ PRSGRD_TILES = ((7, 31), (15, 15), (3, 63), (7, 15), (3, 31))
 PREP_THREADS_TRIED = (32, 64, 96, 128)
 VDIFF_THREADS_TRIED = (64, 96, 128, 192, 256)
 FLUX_TILES = ((7, 31), (15, 15), (3, 63), (7, 15))
+# ops/step2d.py TILE_BLOCKED[4]: kernel 12's float32 tiles whose window fits
+# a block's shared memory
+BLOCKED_TILES = ((40, 56), (24, 86), (32, 64), (20, 56), (16, 96))
 TRIDIAG_THREADS_TRIED = (64, 128, 192, 256)
 # ops/bulk.py SHAPE: threads a block of the bulk and staggering kernels
 BULK_THREADS_TRIED = (128, 256, 512)
@@ -1702,11 +1783,12 @@ def launch_shapes(torch, app):
     and UVMIX_TILES, and prep's and spline_vdiff's with each block size of
     PREP_THREADS_TRIED and VDIFF_THREADS_TRIED, flux_omega's and omega's
     with each of FLUX_TILES, bulk_flux's with each block size of
-    BULK_THREADS_TRIED and tridiag's with each block size of
-    TRIDIAG_THREADS_TRIED at the app's full width, float32, each output
-    bitwise against the chosen shape's."""
-    from roms_tpu_torch.ops import (bulk, flux, kpp, prsgrd, rhs3d, tadv,
-                                    tridiag, uv, uvmix, vdiff)
+    BULK_THREADS_TRIED, tridiag's with each block size of
+    TRIDIAG_THREADS_TRIED and kernel 12's with each tile of BLOCKED_TILES
+    at the app's full width, float32, each output bitwise against the
+    chosen shape's."""
+    from roms_tpu_torch.ops import (bulk, flux, kpp, prsgrd, rhs3d, step2d,
+                                    tadv, tridiag, uv, uvmix, vdiff)
 
     def tile_of(mod):
         return lambda: mod.TILE, lambda x: setattr(mod, "TILE", x)
@@ -1731,9 +1813,13 @@ def launch_shapes(torch, app):
             ("bulk_flux", BULK_THREADS_TRIED, lambda: bulk.SHAPE,
              lambda x: setattr(bulk, "SHAPE", x)),
             ("tridiag", TRIDIAG_THREADS_TRIED, lambda: tridiag.THREADS[4],
-             lambda x: tridiag.THREADS.__setitem__(4, x))):
+             lambda x: tridiag.THREADS.__setitem__(4, x)),
+            ("fast_loop_blocked", BLOCKED_TILES,
+             lambda: step2d.TILE_BLOCKED[4],
+             lambda x: step2d.TILE_BLOCKED.__setitem__(4, x))):
         if name not in APPS[app]["entries"] and not (
-                name == "tridiag" and app == "upwelling"):
+                name == "tridiag" and app == "upwelling") and \
+                name != "fast_loop_blocked":
             continue
         args, _ = entry_inputs(torch, name, *env, 5)
         kern = entry_fns(name)[0]

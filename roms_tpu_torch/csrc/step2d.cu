@@ -130,6 +130,8 @@ struct HalfIx : WindowIx {
     return static_cast<unsigned>(j - HJ) < static_cast<unsigned>(tj) &&
            static_cast<unsigned>(i - HI) < static_cast<unsigned>(ti);
   }
+  // the next launch reads rhs_zeta from device memory at the tile's points
+  __device__ bool keep(int j, int i) const { return own(j, i); }
 };
 
 // one launch's parameters

@@ -3,9 +3,9 @@
 // engines: the resident loop (step2d.cu, kernel 11: one launch per
 // half-step, one block per tile, its intermediates in shared memory) and
 // the j-blocked loop (step2d_blocked.cu, kernel 12: KS substeps per
-// launch, one block per tile, on a window of the tile with halo in device
-// memory).  Both evaluate the same expressions in the same order, so they
-// round alike.
+// launch on a window of each tile with halo, its neighbour-read fields in
+// shared memory).  Both evaluate the same expressions in the same order,
+// so they round alike.
 //
 // The formulas are templated on an indexer Ix, which maps a point (j, i)
 // of the engine's own coordinates, whose neighbours are (j +- 1, i +- 1),
@@ -15,7 +15,9 @@
 //          plane table f,
 //   grow(j): the global row (0 <= . < Mj),
 //   own(j, i): whether the point is one the block stores (the averages
-//          and the predictor's rhs_zeta are written only there),
+//          are formed only there),
+//   keep(j, i): whether the predictor's rhs_zeta is kept at the point
+//          (the points that a later half-step of the launch reads),
 // and applies the lateral BCs' index maps from global indices, as
 // points of its own coordinates:
 //   px(i): the lane an array holds after st.periodic_x (lane 0 holds
@@ -94,9 +96,9 @@ enum Stat {
   RHOS, RHOA, RU0, RV0, RU0P2, RV0P2, NSTAT
 };
 
-// The rotation of the planes between phases: the corrector writes
-// zeta_c into the zeta_prev plane, and after each substep the new state
-// and the predictor's rhs histories swap places with the old ones
+// The rotation of kernel 11's planes between launches: the corrector
+// writes zeta_c into the zeta_prev plane, and after each substep the new
+// state and the predictor's rhs histories swap places with the old ones
 // instead of being copied.
 struct Slots {
   int s[NPLANE];
@@ -163,8 +165,9 @@ struct Consts {
 // What the per-point formulas see: the launch's constants, grid planes
 // and scalar table by reference (each kernel takes them as one
 // __grid_constant__ parameter, read in place rather than copied into
-// every thread), the plane table of the carry and scratch fields, the
-// indexer and the substep (0-based, of the whole loop).
+// every thread), the plane table of the carry and scratch fields (kernel
+// 11's; kernel 12's indexer places its fields itself), the indexer and
+// the substep (0-based, of the whole loop).
 template <typename T, typename Ix>
 struct Ctx {
   const Consts<T>& k;
@@ -450,7 +453,7 @@ template <typename T, bool CORR, typename C>
 __device__ __forceinline__ void zeta_point(const C& c, int j, int i) {
   T zn, zw, rhs;
   zeta_raw<T, CORR>(c, j, i, zn, zw, rhs);
-  if (!CORR && c.ix.own(j, i)) c.F(RZ_M, j, i) = rhs;
+  if (!CORR && c.ix.keep(j, i)) c.F(RZ_M, j, i) = rhs;
   c.F(ZWRK, j, i) = zw;
   // bc_rho: ring rows copy their inner neighbour, lanes the periodic ones
   const int sj = c.ring_row(j);

@@ -11,7 +11,9 @@ formulas (csrc/step2d_point.cuh).
 - `fast_loop_blocked` (csrc/step2d_blocked.cu) replaces
   `fast_loop_pallas`, the j-blocked engine: one launch per chunk of
   `chunk_schedule(nfast)` substeps (KS = 2, KS = 1 for an odd
-  remainder), each CUDA block a tile that recomputes its halo.
+  remainder), each tile recomputing its halo on a window whose
+  neighbour-read fields lie in shared memory, one CUDA block per
+  resident slot looping over the tiles.
 
 The plain version of both is core/step2d.py's substep loop.  Both return
 the 16 carry fields (FastCarry); core/step2d.py's `aux_pass` finishes
@@ -37,9 +39,19 @@ STATICS = ("h", "pm", "pn", "rmask", "umask", "vmask", "fomn", "dndx",
            "on_r", "om_r", "on_p", "om_p", "pmask", "visc2_r", "visc2_p")
 NPLANE = 27      # 16 carry planes + 11 scratch planes (enum Plane)
 HALF_STEPS = 2   # kernel 11's CUDA launches per substep
-# kernel 12's tile (rows, lanes): the fastest of the tiles timed on the
-# H100 at both full-width channel shapes (PERF.md)
-TILE = (24, 96)
+# kernel 12's tile (rows, lanes) by element size, whose KS = 2 window fits
+# a block's shared memory: in float32 the fastest of the tiles timed on
+# the H100 at both full-width channel shapes (259 and 260 tiles there, two
+# rounds of its 132 one-block slots; PERF.md), in float64 a window of the
+# same 227 KB
+TILE_BLOCKED = {4: (40, 56), 8: (16, 40)}
+# kernel 12's window planes in shared memory (csrc/step2d_blocked.cu NWIN)
+BLOCKED_WIN_PLANES = 10
+# kernel 12's scratch fields (csrc/step2d_blocked.cu enum Scr): the
+# predictor's three rhs histories and the first substep's two forcing
+# planes over the points substep 0's corrector reads, the histories again
+# over those of substep 1's
+SCRATCH_FIELDS = (5, 3)
 # kernel 11's tile by element size: float32 374 and 390 blocks at the
 # two full-width channel shapes, three an SM (396 slots on the H100's 132
 # SMs), the fastest of the tiles timed there (PERF.md); float64 windows
@@ -94,10 +106,10 @@ def chunk_schedule(nfast: int):
 def halo(ks: int, Li: int):
     """(rows, lanes) per window edge that keep a tile exact over ks
     substeps (csrc/step2d_blocked.cu): 6 points a substep, one row more
-    for the wall copies, two lanes more for the periodic lanes, and two
-    more again on a 4-lane grid, where the periodic copies chain (as in
-    `half_step_halo`)."""
-    return 6 * ks + 1, 6 * ks + 2 + 2 * (Li == 4)
+    for the wall copies, two lanes more for the periodic lanes, and on a
+    grid of 4 or 5 lanes, where the periodic copies chain, two lanes
+    more a substep and two more again."""
+    return 6 * ks + 1, 6 * ks + 2 + (2 * ks + 2) * (Li <= 5)
 
 
 def half_step_halo(Li: int):
@@ -109,10 +121,29 @@ def half_step_halo(Li: int):
     return 3 + 1, 3 + 2 + 2 * (Li == 4)
 
 
-def tiling(Mj: int, Li: int):
-    """(TJ, TI) of kernel 12's tiles: about TILE, evened out over the
-    grid."""
-    return _lib.even_tiles(Mj, Li, TILE)
+def blocked_launch_shape(Mj: int, Li: int, itemsize: int, ks: int = 2):
+    """Kernel 12's (TJ, TI, HJ, HI, blocks, dynamic shared memory bytes)
+    at an (Mj, Li) grid, element size and KS (csrc/step2d_blocked.cu
+    smem_bytes): tiles of about TILE_BLOCKED evened out over the grid,
+    the halo of `halo`, BLOCKED_WIN_PLANES window planes and the window's
+    row and lane tables."""
+    TJ, TI = _lib.even_tiles(Mj, Li, TILE_BLOCKED[itemsize])
+    HJ, HI = halo(ks, Li)
+    WJ, WI = TJ + 2 * HJ, TI + 2 * HI
+    blocks = -(-Mj // TJ) * -(-Li // TI)
+    return (TJ, TI, HJ, HI, blocks,
+            BLOCKED_WIN_PLANES * WJ * WI * itemsize + 4 * (WJ + WI))
+
+
+def blocked_scratch(TJ: int, TI: int, Li: int):
+    """Elements of device scratch one kernel-12 block keeps (KS = 2, which
+    needs the most): SCRATCH_FIELDS planes over the points that substep
+    q's corrector reads, 3 (2 q + 1) from each window edge less the ring
+    copies' reach of one row and two lanes."""
+    HJ, HI = halo(2, Li)
+    WJ, WI = TJ + 2 * HJ, TI + 2 * HI
+    return sum(n * (WJ - 2 * (6 * q + 2)) * (WI - 2 * (6 * q + 1))
+               for q, n in enumerate(SCRATCH_FIELDS))
 
 
 def res_launch_shape(Mj: int, Li: int, itemsize: int):
@@ -124,6 +155,14 @@ def res_launch_shape(Mj: int, Li: int, itemsize: int):
     blocks = -(-Mj // TJ) * -(-Li // TI)
     return (TJ, TI, HJ, HI, blocks,
             (WIN_PLANES * WJ * WI + 2 * TJ * TI) * itemsize + 4 * (WJ + WI))
+
+
+def blocked_slots(sfx: str, TJ: int, TI: int, HJ: int, HI: int):
+    """Kernel 12's blocks that the card holds at once with a (TJ, TI)
+    tile and (HJ, HI) halo (csrc/step2d_blocked.cu slots): the launch's
+    grid when the grid has more tiles."""
+    return _lib.func(f"roms_fast_loop_blocked_{sfx}_slots",
+                     [_lib.I] * 4)(TJ, TI, HJ, HI)
 
 
 def _kernel_inputs(name, cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0,
@@ -211,7 +250,10 @@ def fast_loop_blocked(cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0,
     """Kernel 12's wrapper: plain version (kernel 11's, since both engines
     compute one function) on CPU tensors; on CUDA tensors
     one kernel launch per chunk of `chunk_schedule(nfast)`, counted each,
-    the carry ping-ponged between two 16-plane buffers."""
+    the carry ping-ponged between two 16-plane buffers, the predictor's
+    rhs histories in a scratch of `blocked_scratch` elements per resident
+    block.  A window over a block's shared memory raises before any
+    launch."""
     args = (cfg, grid, nfast, w1, w2, var_rho, zeta0, ubar0, vbar0, rufrc,
             rvfrc, rhoS, rhoA, ru0_prev, rv0_prev, ru0_prev2, rv0_prev2,
             iic)
@@ -225,21 +267,26 @@ def _launch_blocked(*args):
         _kernel_inputs("fast_loop_blocked", *args)
     nfast, ru0_prev, rv0_prev = args[2], args[13], args[14]
     Mj, Li = src.shape[1:]
-    TJ, TI = tiling(Mj, Li)
-    hj, hi = halo(2, Li)
-    blocks = -(-Mj // TJ) * -(-Li // TI)
-    scratch = torch.empty(blocks * NPLANE * (TJ + 2 * hj) * (TI + 2 * hi),
-                          dtype=src.dtype, device=src.device)
+    TJ, TI, HJ, HI, blocks, smem = blocked_launch_shape(
+        Mj, Li, src.element_size())
+    if smem > _lib.SMEM_PER_BLOCK:
+        raise ValueError(f"fast_loop_blocked: a {TJ}x{TI} tile's window "
+                         f"needs {smem} B of shared memory (at most 227 KB)")
+    P, I, L = _lib.P, _lib.I, ctypes.c_longlong
+    slots = min(blocks, blocked_slots(sfx, TJ, TI, HJ, HI))
+    if slots < 1:
+        raise RuntimeError("fast_loop_blocked: no block fits an SM")
+    per = blocked_scratch(TJ, TI, Li)
+    scratch = torch.empty(slots * per, dtype=src.dtype, device=src.device)
     dst = torch.empty_like(src)
-    P, I = _lib.P, _lib.I
     fn = _lib.func(f"roms_fast_loop_blocked_{sfx}",
-                   [P, P, P, P, P, I, I, I, I, I, I, I, I, P, I, P])
+                   [P, P, P, P, L, P] + [I] * 9 + [P, I, P])
     s0 = 0
     for ks in chunk_schedule(nfast):
         hj, hi = halo(ks, Li)
-        rc = fn(statp, _lib.ptr(src), _lib.ptr(dst), _lib.ptr(scratch),
-                _lib.ptr(table), s0, ks, Mj, Li, TJ, TI, hj, hi, consts,
-                flags, P(stream))
+        rc = fn(statp, _lib.ptr(src), _lib.ptr(dst), _lib.ptr(scratch), per,
+                _lib.ptr(table), s0, ks, Mj, Li, TJ, TI, hj, hi, slots,
+                consts, flags, P(stream))
         _lib.launches["fast_loop_blocked"] += 1
         _lib.check(rc, "fast_loop_blocked")
         src, dst = dst, src

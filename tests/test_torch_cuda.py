@@ -161,18 +161,28 @@ def test_fast_loop_res_at_ragged_and_minimal_shapes(app, shape, dtype):
         assert _lib.launches["fast_loop_res"] == before + 1
 
 
+def _blocked_bitwise(dtype, shapes):
+    """Kernel 12 at `shapes` from iic 0, 1 and 5: bitwise equal to kernel
+    11, within the fast loops' bound of its plain loop, one launch a
+    chunk."""
+    tol = cs.TOL_F64["fast_loop_blocked"] if dtype == "float64" \
+        else cs.TOL["float32"]
+    failures = len(cs.FAILURES)
+    for label, args in cs.blocked_cases(torch, dtype, shapes):
+        rel, _, same = cs.blocked_check(torch, args, dtype)
+        assert same and rel <= tol, (label, rel)
+    assert len(cs.FAILURES) == failures, cs.FAILURES[failures:]
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_fast_loop_res_bitwise_equals_kernel_12(dtype):
     """The two fast-loop engines evaluate one set of per-point formulas
     in the same order: every carry field is bitwise equal at a ragged
-    shape."""
+    shape, at the full-width BENCHMARK3 and UPWELLING planes and on a
+    channel whose last row tile has one row, from iic 0, 1 and 5."""
     _need_card()
-    env = cs.setup(torch, 73, 33, 4, dtype, app="upwelling")
-    args, _ = cs.entry_inputs(torch, "fast_loop_res", *env, 5)
-    res = cs.outputs(step2d.fast_loop_res(*args))
-    blocked = cs.outputs(step2d.fast_loop_blocked(*args))
-    for k, (a, b) in enumerate(zip(res, blocked)):
-        assert torch.equal(a, b), k
+    _blocked_bitwise(dtype, [("upwelling", (73, 33))]
+                     + cs.BLOCKED_SHAPES[:3])
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -217,17 +227,14 @@ def test_rot_div_geo_raises_when_its_tile_exceeds_shared_memory():
 
 @pytest.mark.parametrize("Mj", [4, 5])
 def test_fast_loop_blocked_on_a_4_lane_channel(Mj):
-    """Kernel 12 on a 4-lane channel (Li = 4), where the periodic copies
-    chain and its halo takes two lanes more: float64, 42 substeps, within
-    the fast loops' bound of its plain loop, from the first substep and a
-    later one."""
+    """Kernel 12 on 4- and 5-lane channels (the periodic copies chain and
+    its halo takes 2 KS + 2 lanes more), both types, 42
+    substeps, from iic 0, 1 and 5: bitwise equal to kernel 11 and within
+    the fast loops' bound of its plain loop."""
     _need_card()
-    env = cs.setup(torch, 2, Mj - 2, 4, "float64", app="upwelling")
-    for iic in (0, 5):
-        args, _ = cs.entry_inputs(torch, "fast_loop_blocked", *env, iic)
-        assert args[2] == 42
-        rel, _ = cs.compare(torch, "fast_loop_blocked", args, "float64")
-        assert rel <= cs.TOL_F64["fast_loop_blocked"], (Mj, iic, rel)
+    for dtype in ("float64", "float32"):
+        _blocked_bitwise(dtype, [("upwelling", (Li - 2, Mj - 2))
+                                 for Li in (4, 5)])
 
 
 def _closed(cfg):

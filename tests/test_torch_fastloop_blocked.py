@@ -8,7 +8,7 @@ grid.
   (four KS = 2 chunks and one KS = 1 chunk), without 2D advection, whose
   VFx fault in the Pallas kernels is pinned in test_torch_upwelling.py;
   and against roms_tpu's jnp substep loop over whole arrays;
-- the chunk schedule and the tiling the CUDA wrapper launches;
+- the chunk schedule and the launch shape the CUDA wrapper takes;
 - the engine switch of `make_fast_loop` and `Model`.
 
 The CUDA kernel itself needs a card: tests/test_torch_cuda.py.
@@ -29,7 +29,7 @@ from roms_tpu.ops import pallas_step2d, stencil as st
 from roms_tpu_torch.core import step2d as tcore_step2d
 from roms_tpu_torch.core.stepping import Model
 from roms_tpu_torch.functionals import upwelling as tup
-from roms_tpu_torch.ops import step2d as tstep2d
+from roms_tpu_torch.ops import _lib, step2d as tstep2d
 
 from torch_port_util import port, rel_err
 
@@ -132,17 +132,39 @@ def test_chunk_schedule():
 @pytest.mark.parametrize("shape", [(23, 14), (258, 2050), (1026, 514),
                                    (34, 66), (102, 205), (4, 4), (5, 4)])
 def test_tiling_covers_the_grid(shape):
-    """The tiles cover the grid with as few tiles of at most 24 x 96 as
-    will do, and the halo keeps 6 points a substep plus the BC copies'
-    reach, two lanes more on a 4-lane grid, where the periodic copies
-    chain."""
+    """Kernel 12's launch shape per element size: the grid covered by as
+    few tiles of at most TILE_BLOCKED[itemsize] as will do (float32 40 x
+    56, float64 its own 16 x 40), the halo of 6 points a substep plus the
+    BC copies' reach (two lanes more a substep and two more again on a
+    grid of 4 or 5 lanes, where the periodic copies chain), and the KS = 2
+    window's shared memory, itemsize x 10 planes x (TJ + 26) x (TI + 28)
+    plus the row and lane tables at Li > 4, within a block's 227 KB; at
+    the two full-width shapes float32 takes at most two rounds of 132
+    resident blocks, and their scratch stays under 25 MB."""
     Mj, Li = shape
-    TJ, TI = tstep2d.tiling(Mj, Li)
-    assert TJ <= 24 and TI <= 96
-    assert -(-Mj // TJ) == -(-Mj // 24) and -(-Li // TI) == -(-Li // 96)
-    extra = 2 if Li == 4 else 0
-    assert tstep2d.halo(2, Li) == (13, 14 + extra)
-    assert tstep2d.halo(1, Li) == (7, 8 + extra)
+    narrow = Li <= 5
+    assert tstep2d.halo(2, Li) == (13, 14 + 6 * narrow)
+    assert tstep2d.halo(1, Li) == (7, 8 + 4 * narrow)
+    for itemsize, tile in ((4, (40, 56)), (8, (16, 40))):
+        assert tstep2d.TILE_BLOCKED[itemsize] == tile
+        TJ, TI, HJ, HI, blocks, smem = tstep2d.blocked_launch_shape(
+            Mj, Li, itemsize)
+        assert TJ <= tile[0] and TI <= tile[1]
+        nj, ni = -(-Mj // TJ), -(-Li // TI)
+        assert nj == -(-Mj // tile[0]) and ni == -(-Li // tile[1])
+        assert blocks == nj * ni and (HJ, HI) == tstep2d.halo(2, Li)
+        WJ, WI = TJ + 2 * HJ, TI + 2 * HI
+        assert smem == itemsize * tstep2d.BLOCKED_WIN_PLANES * WJ * WI \
+            + 4 * (WJ + WI)
+        if not narrow:
+            assert smem == itemsize * 10 * (TJ + 26) * (TI + 28) \
+                + 4 * (TJ + TI + 54)
+        assert smem <= _lib.SMEM_PER_BLOCK
+        if shape in ((258, 2050), (1026, 514)):
+            assert itemsize == 8 or blocks <= 2 * 132
+            scratch = min(blocks, 132) * tstep2d.blocked_scratch(
+                TJ, TI, Li) * itemsize
+            assert scratch <= 25e6, (itemsize, scratch)
 
 
 @pytest.fixture(scope="module")
