@@ -67,7 +67,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (Kantha-Clayson) and the MY2.5 closure (the turbulence fields too)
      and BENCHMARK full physics Lm=64, Mm=32, N=16, all but the first
      from a zonally varying state; UPWELLING (analytic and GLS) and
-     BENCHMARK again with `Model(fast_loop="blocked")`;
+     BENCHMARK again with `Model(fast_loop="blocked")`; BASIN, SEAMOUNT,
+     GRAV_ADJ, WINDBASIN, CANYON and CHANNEL at their published sizes,
+     from their initial states with the same seeded noise;
   4. full width, float32, 10 steps after a warm-up step, ms/step from
      CUDA events, each entry point's launches in the run and no plain
      version called: DOUBLE_GYRE Lm=512, Mm=1024, N=30 (dt=240 s; finite
@@ -90,9 +92,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      systems; after
      the checks, three more 10-step windows of each app, timed by CUDA
      events and on the host, and the card's SM clock during a fourth,
-     for the step's spread within one call; last, torch.profiler's
-     device kernels of one bulk_flux call (only csrc/bulk.cu's: its
-     wrapper launches no PyTorch operation).
+     for the step's spread within one call;
+  5. the deck driver, `python -m roms_tpu_torch`: (a) in process, an
+     UPWELLING deck in the reference format at 512 x 1024 x 16, float32,
+     20 steps, HIS and AVG every 10 steps, RST at 20, STA every step at 4
+     stations, NINFO every 5: the files and their record counts, finite
+     fields, every channel entry point launched and no plain version
+     called, the driver's ms/step beside phase 4's bare step and each
+     output event's seconds; (b) restart bit for bit: the RST record
+     against the final state, and 3 + 3 float64 steps through
+     read_restart against 6 at 48 x 64 x 16; (c) as subprocesses, all
+     started together, the BENCHMARK deck at 64 x 32 x 16 and each of
+     the six apps' decks at its published size, 3 steps each, exit 0;
+  last, torch.profiler's device kernels of one bulk_flux call (only
+  csrc/bulk.cu's: its wrapper launches no PyTorch operation).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -113,6 +126,7 @@ TOL_F64 = {"fast_loop_res": 1e-11, "fast_loop_blocked": 1e-11}
 DEVICE = "cuda"
 FAILURES = []       # kernel-vs-plain excesses, reported at phase end
 CARD = ""           # nvidia-smi's name and power limit
+BARE_MS = {}        # phase 4's bare Model.run ms/step of each full app
 
 
 def fail(msg):
@@ -178,6 +192,7 @@ def main():
         rows = kernel_table(torch, app, counts[app])
         done = {row["name"] for row in table}
         table += [row for row in rows if row["name"] not in done]
+    deck_phase(torch)
     # last, since a process that has run torch.profiler issues every later
     # launch more slowly (DOUBLE_GYRE's host-bound step, 35238 launches,
     # read ~90 ms/step slower after it)
@@ -336,12 +351,36 @@ for _app, _launches, _alone in (("upwelling", 21, True),
         per_step=dict(_spec.get("per_step", {}),
                       fast_loop_blocked=_launches))
 BLOCKED = [a for a in APPS if a.endswith("_blocked")]
+# the analytical apps that need only ported physics: phase 3's parity at
+# their published sizes (the config defaults, parity None), the closed
+# basins on the DOUBLE_GYRE kernels, the channels on UPWELLING's and
+# CANYON with the rotated tracer mixing (tests/test_torch_kernels.py
+# APP_KERNELS)
+IDEALIZED = ("basin", "seamount", "grav_adj", "windbasin", "canyon",
+             "channel")
+for _app in IDEALIZED:
+    APPS[_app] = dict(
+        entries=SLICE2 + ["rot_div_geo"] if _app == "canyon" else (
+            SLICE2 if _app == "channel" else SLICE1),
+        dt=None, kernel_sizes=(), parity=(None, None, None, None),
+        full=None)
 
 
 def app_setup(app, Lm, Mm, N, dtype, dt):
     """(cfg, grid, initial state, model kwargs) of an application."""
     closure = APPS[app].get("mixing")
     app = APPS[app].get("base", app)
+    if app in IDEALIZED:
+        from roms_tpu_torch.functionals import idealized as ia
+        kw = dict(dtype=dtype) if Lm is None else dict(
+            Lm=Lm, Mm=Mm, N=N, dt=dt, dtype=dtype)
+        cfg = getattr(ia, f"{app}_config")(**kw)
+        grid = getattr(ia, f"{app}_grid")(cfg, device=DEVICE)
+        forcing = getattr(ia, f"{app}_forcing_fn", None)
+        forcing = forcing(cfg, grid) if forcing else \
+            ia.zero_forcing(cfg, grid)
+        return cfg, grid, getattr(ia, f"{app}_initial")(cfg, grid), dict(
+            forcing_fn=forcing)
     if app == "double_gyre":
         from roms_tpu_torch.functionals import idealized as ia
         cfg = ia.double_gyre_config(Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=30,
@@ -1115,19 +1154,21 @@ def closure_systems(torch, app, Lm, Mm, N, dtype):
 
 def make_model(torch, app, Lm, Mm, N, dtype, use_kernels, dt, perturb):
     """Model and initial state; `perturb` adds seeded zonally varying
-    noise to u, v and t, so EW-periodic seam errors cannot cancel."""
+    noise to u, v and t (keeping the app's own zeta, u and v, such as
+    CHANNEL's jet), so EW-periodic seam errors cannot cancel."""
     from roms_tpu_torch.core.state import initial_state
     from roms_tpu_torch.core.stepping import Model
     cfg, grid, s, kw = app_setup(app, Lm, Mm, N, dtype, dt)
     if perturb:
         gen = torch.Generator(device=DEVICE).manual_seed(11)
-        shp3 = (N,) + cfg.shape2d
+        shp3 = (cfg.N,) + cfg.shape2d
 
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=DEVICE,
                                dtype=grid.dtype)
-        s = initial_state(cfg, grid, u=0.05 * rnd(*shp3) * grid.umask,
-                          v=0.05 * rnd(*shp3) * grid.vmask,
+        s = initial_state(cfg, grid, zeta=s.zeta,
+                          u=s.u + 0.05 * rnd(*shp3) * grid.umask,
+                          v=s.v + 0.05 * rnd(*shp3) * grid.vmask,
                           t=s.t + 0.1 * rnd(*s.t.shape))
     return Model(cfg, grid, use_kernels=use_kernels,
                  fast_loop=APPS[app].get("fast_loop", "resident"), **kw), s
@@ -1230,6 +1271,7 @@ def full_width(torch, app):
     if plain_calls:
         fail(f"{app}: plain versions ran on the main path: {plain_calls}")
     ms_step = start.elapsed_time(end) / nsteps
+    BARE_MS[app] = ms_step
     print(f"full width {app} {Mm + 2}x{Lm + 2}x{N} float32: {ms_step:.3f} "
           f"ms/step (CUDA events), host wall {1e3 * wall / nsteps:.3f} "
           f"ms/step, nfast={model.nfast} [{CARD}]", flush=True)
@@ -1929,6 +1971,284 @@ def profile_step(torch, app):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}", flush=True)
+
+
+# the full-width UPWELLING deck of the deck phase: every stream on, the
+# history with the derived and diagnosed fields
+DECK_FULL = ["--lm", "512", "--mm", "1024", "--n", "16", "--dtype",
+             "float32", "--ntimes", "20"]
+DECK_STREAMS = """
+       NINFO == 5
+        NHIS == 10
+        NAVG == 10
+        NRST == 20
+        NSTA == 1
+   LcycleRST == T
+     SPOSNAM == {spos}
+""" + "\n".join(f"Hout({code}) == T" for code in (
+    "idFsur", "idUbar", "idVbar", "idUvel", "idVvel", "idWvel", "idOvel",
+    "idDano", "idUsms", "idUbms", "idVvis")) + "\nHout(idTvar) == T T\n"
+# four stations (FLAG 0: grid indices I, J) inside 514 x 1026
+STATIONS = """
+    NSTATION ==  4
+Sout(idFsur) == T
+Sout(idUvel) == T
+Sout(idTvar) == T
+POS =  GRID  FLAG      X-POS       Y-POS     COMMENT
+        1    0       10.0        20.0
+        1    0      256.0       100.0
+        1    0      256.0       512.0
+        1    0      500.0      1000.0
+"""
+DECK_RECORDS = {"roms_his.nc": 2, "roms_avg.nc": 2, "roms_rst.nc": 1,
+                "roms_sta.nc": 20}
+
+
+def deck_text(app, cfg, ntimes, streams=""):
+    """A reference-format roms.in deck (read_phypar.F keywords) carrying
+    cfg's runtime keywords, as a user's deck for the app would."""
+    v, e, m, bc = cfg.vert, cfg.eos, cfg.mixing, cfg.bc
+    kind = {"periodic": "Per", "closed": "Clo"}
+
+    def lbc(side):
+        return " ".join(kind[getattr(side, edge)]
+                        for edge in ("west", "south", "east", "north"))
+    lines = [
+        f"TITLE = {app} through the port's deck driver",
+        f"MyAppCPP = {app.upper()}",
+        f"Lm == {cfg.Lm}", f"Mm == {cfg.Mm}", f"N == {cfg.N}",
+        f"NTIMES == {ntimes}", f"DT == {cfg.dt!r}",
+        f"NDTFAST == {cfg.ndtfast}", f"Vtransform == {v.Vtransform}",
+        f"Vstretching == {v.Vstretching}", f"THETA_S == {v.theta_s!r}",
+        f"THETA_B == {v.theta_b!r}", f"TCLINE == {v.Tcline!r}",
+        f"RHO0 == {cfg.rho0!r}", f"R0 == {e.R0!r}", f"T0 == {e.T0!r}",
+        f"S0 == {e.S0!r}", f"TCOEF == {e.Tcoef!r}",
+        f"SCOEF == {e.Scoef!r}", f"GAMMA2 == {cfg.gamma2!r}",
+        f"VISC2 == {m.visc2!r}",
+        "TNU2 == " + " ".join(repr(x) for x in m.tnu2),
+        f"AKV_BAK == {m.akv_bak!r}",
+        "AKT_BAK == " + " ".join(repr(x) for x in m.akt_bak),
+        "RDRG == " + repr(cfg.drag.rdrg if cfg.drag.kind == "linear"
+                          else 0.0),
+        f"RDRG2 == {cfg.drag.rdrg2!r}"]
+    for name, side in (("isFsur", bc.zeta), ("isUbar", bc.ubar),
+                       ("isVbar", bc.vbar), ("isUvel", bc.u),
+                       ("isVvel", bc.v), ("isTvar", bc.t),
+                       ("isMtke", bc.tke)):
+        lines.append(f"LBC({name}) == {lbc(side)}")
+    return "\n".join(lines) + "\n" + streams
+
+
+def write_deck(directory, app, cfg, ntimes, streams=""):
+    path = os.path.join(directory, f"roms_{app}.in")
+    with open(path, "w") as fh:
+        fh.write(deck_text(app, cfg, ntimes, streams))
+    return path
+
+
+def same_state(torch, a, b, label):
+    """Every field of two States equal bit for bit, at the same dtype."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "mix" and x is not None:
+            same_state(torch, x, y, label)
+            continue
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"{label}: {f} differs")
+        elif x != y:
+            fail(f"{label}: {f} {x} != {y}")
+
+
+def deck_phase(torch):
+    """The deck driver `python -m roms_tpu_torch` on the card: (a) the
+    full-width UPWELLING deck with HIS, AVG, RST, STA and NINFO, no plain
+    version called, its ms/step beside phase 4's bare step and the
+    seconds per HIS record; (b) restart bit for bit, from the full-width
+    run's RST record and over 3 + 3 float64 steps at 48 x 64 x 16; (c)
+    the BENCHMARK deck and each new app's deck at its published size as
+    subprocesses."""
+    import tempfile
+
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    from roms_tpu_torch import __main__ as driver
+    from roms_tpu_torch.functionals import upwelling as up
+    from roms_tpu_torch.io.rst_netcdf import read_restart
+    from roms_tpu_torch.ops import _lib
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spos = os.path.join(tmp, "stations.in")
+        with open(spos, "w") as fh:
+            fh.write(STATIONS)
+        deck = write_deck(tmp, "upwelling", up.make_config(), 20,
+                          DECK_STREAMS.format(spos=spos))
+        _lib.reset_launches()
+        run, plain_calls = plain_calls_during(lambda: driver.run(
+            [deck, "--outdir", tmp, "--device", DEVICE] + DECK_FULL))
+        counts = {k: n for k, n in _lib.launches.items() if n}
+        if run.code != 0:
+            fail(f"deck run exited {run.code}")
+        if plain_calls:
+            fail(f"deck run: plain versions ran on the card: {plain_calls}")
+        for name in APPS["upwelling"]["entries"]:
+            if counts.get(name, 0) < run.ntimes:
+                fail(f"deck run: {name} launched {counts.get(name, 0)} "
+                     f"times in {run.ntimes} steps")
+        print(f"deck run launches in {run.ntimes} steps (output "
+              f"included): {counts}; plain-version calls: 0", flush=True)
+        for fname, nrec in DECK_RECORDS.items():
+            f = netcdf_file(os.path.join(tmp, fname), "r", mmap=False)
+            got = f.variables["ocean_time"].shape[0]
+            if got != nrec:
+                fail(f"deck run: {fname} has {got} records, expected "
+                     f"{nrec}")
+            for name, var in f.variables.items():
+                if not np.isfinite(var.data).all():
+                    fail(f"deck run: {fname} {name} not finite")
+            print(f"deck run {fname}: {got} records, variables "
+                  f"{sorted(f.variables)}", flush=True)
+            f.close()
+        ms_deck = 1e3 * run.seconds / run.ntimes
+        cfg = run.model.cfg
+        print(f"deck driver UPWELLING {cfg.Mm + 2}x{cfg.Lm + 2}x{cfg.N} "
+              f"{cfg.dtype}: {ms_deck:.3f} "
+              f"ms/step with every stream on (host wall, {run.ntimes} "
+              f"steps), bare Model.run {BARE_MS['upwelling']:.3f} ms/step "
+              f"(phase 4, CUDA events) [{CARD}]", flush=True)
+        output_costs(torch, run, tmp)
+
+        # (b) restart bit for bit
+        r = read_restart(os.path.join(tmp, "roms_rst.nc"), run.model.cfg,
+                         run.model.grid, template=run.state)
+        same_state(torch, run.state, r, "full-width RST record")
+        print("restart: the full-width float32 RST record equals the final "
+              "state bit for bit", flush=True)
+        restart_check(torch, tmp)
+        del run, r
+        torch.cuda.empty_cache()
+
+        # (c) the decks as users run them
+        deck_subprocesses(tmp)
+    print(f"deck phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def output_costs(torch, run, tmp):
+    """Seconds of each output event of the deck run at its size, timed
+    alone on a copy of the final state (so that nothing is cached) between
+    two synchronizations: a HIS record (three times), an AVG step and
+    record, an RST record, a station sample and a NINFO line."""
+    from roms_tpu_torch.core.diag import diag
+    from roms_tpu_torch.io.netcdf import AverageAccumulator, HistoryWriter
+    from roms_tpu_torch.io.rst_netcdf import RestartWriter
+    from roms_tpu_torch.io.sta_netcdf import StationWriter
+    cfg, grid, om = run.model.cfg, run.model.grid, run.output
+
+    def timed(fn):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    his = HistoryWriter(os.path.join(tmp, "his_timing.nc"), cfg, grid,
+                        fields=om.his.fields, model=run.model)
+    secs = [timed(lambda: his.write(run.state._replace()))
+            for _ in range(3)]
+    his.close()
+    avg = HistoryWriter(os.path.join(tmp, "avg_timing.nc"), cfg, grid,
+                        fields=om.avg_writer.fields, model=run.model)
+    acc = AverageAccumulator(cfg, avg.fields)
+    t_acc = timed(lambda: acc.accumulate(avg._extract, run.state._replace()))
+
+    def avg_record():
+        mean = acc.mean()
+        for key in avg.fields:
+            avg.write_field(0, key, mean[key])
+        avg.f.flush()
+    t_avg = timed(avg_record)
+    avg.close()
+    rst = RestartWriter(os.path.join(tmp, "rst_timing.nc"), cfg, grid)
+    t_rst = timed(lambda: rst.write(run.state))
+    rst.close()
+    sta = StationWriter(os.path.join(tmp, "sta_timing.nc"), cfg,
+                        list(zip(om.sta.rec.jj, om.sta.rec.ii)),
+                        fields=om.sta.rec.fields)
+    t_sta = timed(lambda: sta.write(run.state))
+    sta.close()
+    t_info = timed(lambda: float(diag(cfg, grid, run.state).avgke))
+    print(f"output event costs {cfg.Mm + 2}x{cfg.Lm + 2}x{cfg.N} "
+          f"{cfg.dtype} [{CARD}]: HIS record ({len(his.fields)} fields "
+          f"{list(his.fields)}) {secs[0]:.3f} / {secs[1]:.3f} / "
+          f"{secs[2]:.3f} s; AVG accumulate {t_acc:.4f} s, AVG record "
+          f"({len(avg.fields)} fields) {t_avg:.3f} s; RST record "
+          f"{t_rst:.3f} s; station sample {t_sta:.4f} s; NINFO line "
+          f"{t_info:.4f} s", flush=True)
+
+
+def restart_check(torch, tmp):
+    """UPWELLING at 48 x 64 x 16 float64: 3 steps, RST, read_restart, 3
+    more equal 6 steps bit for bit."""
+    from roms_tpu_torch.core.stepping import Model
+    from roms_tpu_torch.functionals import upwelling as up
+    from roms_tpu_torch.io.rst_netcdf import RestartWriter, read_restart
+    cfg = up.make_config(Lm=48, Mm=64, N=16, dtype="float64")
+    grid = up.make_grid(cfg, device=DEVICE)
+    model = Model(cfg, grid, up.make_forcing_fn(cfg, grid),
+                  vmix_fn=up.make_vmix_fn(cfg))
+    s3 = model.run(up.make_initial(cfg, grid), 3)
+    path = os.path.join(tmp, "restart_check.nc")
+    w = RestartWriter(path, cfg, grid)
+    w.write(s3)
+    w.close()
+    r3 = read_restart(path, cfg, grid)
+    same_state(torch, model.run(s3, 3), model.run(r3, 3),
+               "restart 3 + 3 steps")
+    print("restart: 3 + 3 steps through read_restart equal 6 steps bit for "
+          f"bit (UPWELLING {cfg.Mm + 2}x{cfg.Lm + 2}x{cfg.N} float64)",
+          flush=True)
+
+
+def deck_subprocesses(tmp):
+    """`python -m roms_tpu_torch DECK` once on the BENCHMARK deck at its
+    parity size and once on each new app's deck at its published size,
+    3 steps each, all started together; each must exit 0."""
+    from roms_tpu_torch.functionals import benchmark as bm
+    from roms_tpu_torch.functionals import idealized as ia
+    root = os.path.dirname(os.path.abspath(__file__))
+    cases = [("benchmark", bm.make_config(Lm=64, Mm=32, N=16, dt=150.0,
+                                          full_physics=True),
+              ["--lm", "64", "--mm", "32", "--n", "16"])]
+    cases += [(app, getattr(ia, f"{app}_config")(), [])
+              for app in IDEALIZED]
+    procs = []
+    try:
+        for app, cfg, extra in cases:
+            out = os.path.join(tmp, app)
+            os.makedirs(out)
+            deck = write_deck(out, app, cfg, 3, "NHIS == 3\nNINFO == 1\n")
+            procs.append((app, cfg, subprocess.Popen(
+                [sys.executable, "-m", "roms_tpu_torch", deck, "--outdir",
+                 out, "--device", DEVICE] + extra, cwd=root,
+                env=dict(os.environ, PYTHONPATH=root),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for app, cfg, proc in procs:
+            text, _ = proc.communicate(timeout=600)
+            tail = " | ".join(text.strip().splitlines()[-2:])
+            print(f"python -m roms_tpu_torch {app} deck "
+                  f"({cfg.Lm}x{cfg.Mm}x{cfg.N}, 3 steps): exit "
+                  f"{proc.returncode}: {tail}", flush=True)
+            if proc.returncode != 0:
+                fail(f"{app} deck: exit {proc.returncode}\n{text[-3000:]}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 if __name__ == "__main__":

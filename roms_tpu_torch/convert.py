@@ -59,7 +59,7 @@ def grid_from_dict(d: dict, cfg: ModelConfig, device="cuda") -> Grid:
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     if d.get("zice") is not None:
-        raise NotImplementedError("ICESHELF grids: later slice")
+        raise NotImplementedError("ICESHELF grids: ROADMAP Queue 1 item 8")
     kw = {name: (None if d.get(name) is None
                  else _tensor(d[name], dev, dtype))
           for name in Grid.FIELDS}

@@ -42,7 +42,8 @@ def hadv_flux(cfg: ModelConfig, grid: Grid, q, Huon, Hvom, scheme: str):
 
     if scheme != CENTERED4:
         raise NotImplementedError(
-            f"horizontal tracer advection '{scheme}': later slice")
+            f"horizontal tracer advection '{scheme}': ROADMAP Queue 1 "
+            "item 7")
     gx = 0.5 * (st.ip1(dqx) + dqx)
     ge = 0.5 * (st.jp1(dqe) + dqe)
     if ewp:
@@ -66,7 +67,8 @@ def vadv_flux(cfg: ModelConfig, q, W, Hz, scheme: str):
     FC[N] = 0; q, Hz: (N, ...), W: (N+1, ...)."""
     if scheme != CENTERED4:
         raise NotImplementedError(
-            f"vertical tracer advection '{scheme}': later slice")
+            f"vertical tracer advection '{scheme}': ROADMAP Queue 1 "
+            "item 7")
     N = q.shape[0]
     zeros = torch.zeros_like(q[:1])
     cff1, cff2, cff3 = 0.5, 7.0 / 12.0, 1.0 / 12.0

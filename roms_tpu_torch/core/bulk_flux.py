@@ -351,4 +351,22 @@ def make_bulk_forcing(cfg: ModelConfig, atm_fn, cool_skin=False,
         return Forcing(sustr=sustr, svstr=svstr, stflx=stflx,
                        btflx=torch.zeros_like(stflx), srflx=atm.srflx)
 
+    def components(time, sst, sss, rho_surf):
+        """Write-time flux components of the history stream (wrt_his.F
+        idLrad/idLhea/idShea/idEmPf/idrain/idPair/idTair/idUair/idVair),
+        from this module's formulas as roms_tpu forms them (the kernel
+        writes only what the step consumes)."""
+        atm = atm_fn(time)
+        (*_, lrflx, lhflx, shflx, evap) = bulk_flux_rho(
+            cfg, atm, sst, sss, rho_surf, cool_skin=cool_skin,
+            coare35=coare35)
+        Hscale = cfg.rho0 * constants.Cp
+        return {"lwrad": lrflx * Hscale, "latent": lhflx * Hscale,
+                "sensible": shflx * Hscale, "evaporation": evap,
+                "rain": atm.rain,
+                "EminusP": evap / RHOW - atm.rain / RHOW,
+                "Pair": atm.Pair, "Tair": atm.Tair,
+                "Uwind": atm.Uwind, "Vwind": atm.Vwind}
+
+    forcing.components = components
     return forcing

@@ -46,7 +46,7 @@ def _seeds(cfg, grid, u, v, t, ru_prev, rv_prev, ru_prev2, rv_prev2,
            Hz, z_w, forcing, bustr, bvstr, iic, ghats):
     """Column-local corrector seeds (pre_step3d.F:700-900)."""
     if cfg.bodyforce:
-        raise NotImplementedError("BODYFORCE seeds: later slice")
+        raise NotImplementedError("BODYFORCE seeds: ROADMAP Queue 1 item 7")
     dt = cfg.dt
     # tracer seed Hz*t + dt*(surface - bottom flux); lambda=1 removes
     # the interior explicit diffusion piece

@@ -34,7 +34,8 @@ def prsgrd32(cfg: ModelConfig, grid: Grid, rho, z_r, z_w, Hz,
     """(ru, rv) in m4/s2 from the density anomaly rho (N, Mj, Li)."""
     if eq_tide is not None or Pair is not None or grid.zice is not None:
         raise NotImplementedError(
-            "tidal / air-pressure / ice-shelf pressure terms: later slice")
+            "tidal / air-pressure pressure terms: ROADMAP Queue 1 item 6; "
+            "ice-shelf pressure: ROADMAP Queue 1 item 8")
     g = cfg.g
     GRho = g / cfg.rho0
     HalfGRho = 0.5 * GRho

@@ -64,7 +64,8 @@ def hadv_uv(cfg: ModelConfig, grid: Grid, u, v, Huon, Hvom):
     the -div(flux) contributions."""
     if cfg.uv_hadv != "up3":
         raise NotImplementedError(
-            f"momentum advection '{cfg.uv_hadv}': later slice")
+            f"momentum advection '{cfg.uv_hadv}': ROADMAP Queue 1 "
+            "item 7")
     ewp = cfg.bc.ew_periodic
     nsp = cfg.bc.ns_periodic
     uxx = st.lap_x(u)
@@ -125,7 +126,8 @@ def vadv_uv(cfg: ModelConfig, u, v, W):
     (rhs3d.F:1133-1168); returns the -dFC/dk contributions."""
     if cfg.uv_vadv != "c4_sw":
         raise NotImplementedError(
-            f"vertical momentum advection '{cfg.uv_vadv}': later slice")
+            f"vertical momentum advection '{cfg.uv_vadv}': ROADMAP "
+            "Queue 1 item 7")
     c1, c2 = 9.0 / 16.0, 1.0 / 16.0
     N = u.shape[0]
     if cfg.bc.ew_periodic:

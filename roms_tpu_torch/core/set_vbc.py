@@ -1,8 +1,8 @@
 """Bottom stress (port of roms_tpu/core/set_vbc.py; set_vbc.F).
 
 The linear (UV_LDRAG) and quadratic (UV_QDRAG) drag laws, each with the
-reference's 0.75/dt sign-preserving limiter; the logarithmic law comes
-with a later slice.
+reference's 0.75/dt sign-preserving limiter, and no drag; the
+logarithmic law is ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def bottom_drag(cfg: ModelConfig, grid, u, v, Hz, z_r=None, z_w=None):
         bvstr = d.rdrg2 * vb * torch.sqrt(vb * vb + u_at_v * u_at_v)
     else:
         raise NotImplementedError(
-            f"bottom drag '{d.kind}': later slice")
+            f"bottom drag '{d.kind}': ROADMAP Queue 1 item 4")
     cff = 0.75 / cfg.dt
     Hz_u = st.avg_x(Hz[0])
     Hz_v = st.avg_y(Hz[0])

@@ -55,7 +55,8 @@ def _check_supported(cfg: ModelConfig):
     bc = cfg.bc
     if bc.volcons or cfg.wetdry or cfg.sal_scalar:
         raise NotImplementedError(
-            "VolCons / WET_DRY / SAL in the fast loop: later slice")
+            "VolCons and SAL in the fast loop: ROADMAP Queue 1 item 6; "
+            "WET_DRY: ROADMAP Queue 1 item 7")
     for lbc in (bc.zeta, bc.ubar, bc.vbar):
         boundary._check(lbc)
 

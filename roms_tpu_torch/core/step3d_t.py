@@ -17,7 +17,7 @@ def step3d_t(cfg: ModelConfig, grid: Grid, t_half, t_part,
     time-centred fluxes; Akt (NAT, N+1, Mj, Li)."""
     if not cfg.mixing.splines_vdiff:
         raise NotImplementedError(
-            "non-spline vertical diffusion: later slice")
+            "non-spline vertical diffusion: ROADMAP Queue 1 item 7")
     from ..ops import tadv, vdiff
     adv = tadv.corrector if use_kernels else tadv.corrector_plain
     diff = vdiff.spline_vdiff if use_kernels else vdiff.spline_vdiff_plain

@@ -32,7 +32,8 @@ def step3d_uv(cfg: ModelConfig, grid: Grid, u_part, v_part, ru, rv,
     NEW thickness, avg the FastAverages of the fast loop."""
     if not cfg.mixing.splines_vvisc or cfg.omega_implicit:
         raise NotImplementedError(
-            "non-spline viscosity / OMEGA_IMPLICIT corrector: later slice")
+            "non-spline viscosity / OMEGA_IMPLICIT corrector: ROADMAP "
+            "Queue 1 item 7")
     from ..ops import uv
     solve = uv.uv_solve if use_kernels else uv.uv_solve_plain
     finish = uv.uv_finish if use_kernels else uv.uv_finish_plain

@@ -9,7 +9,8 @@ DOUBLE_GYRE class, the EW-periodic UPWELLING channel with the analytic,
 GLS or MY2.5 vertical closure, and the BENCHMARK full physics (JM95,
 COARE bulk fluxes that take the ocean surface state, LMD-KPP with the
 solar source and nonlocal transport, MIX_GEO_TS, quadratic drag); every
-other hook raises NotImplementedError naming the slice that brings it.
+other hook raises NotImplementedError naming the ROADMAP Queue 1 item
+that brings it.
 
 Kernels: `Model(..., use_kernels=True)` (the default) sends the kernel
 entry points through their wrappers, which launch the CUDA kernels on
@@ -45,16 +46,16 @@ from .weights import power_law_weights
 
 _LATER = {
     "obc_fn": "open boundaries (ROADMAP Queue 1 item 6)",
-    "clm_fn": "climatology nudging (later slice)",
-    "bio_fn": "biology (later slice)",
-    "sources": "point sources (later slice)",
-    "sed_fn": "sediment (later slice)",
-    "bbl_fn": "bottom boundary layer (later slice)",
-    "eq_tide_fn": "equilibrium tide (later slice)",
-    "ice_fn": "sea ice (later slice)",
-    "wec_fn": "wave-current coupling (later slice)",
-    "pair_fn": "air pressure (later slice)",
-    "flux_corr_fn": "surface flux corrections (later slice)",
+    "clm_fn": "climatology nudging (ROADMAP Queue 1 item 6)",
+    "bio_fn": "biology (ROADMAP Queue 1 item 8)",
+    "sources": "point sources (ROADMAP Queue 1 item 6)",
+    "sed_fn": "sediment (ROADMAP Queue 1 item 8)",
+    "bbl_fn": "bottom boundary layer (ROADMAP Queue 1 item 8)",
+    "eq_tide_fn": "equilibrium tide (ROADMAP Queue 1 item 6)",
+    "ice_fn": "sea ice (ROADMAP Queue 1 item 8)",
+    "wec_fn": "wave-current coupling (ROADMAP Queue 1 item 8)",
+    "pair_fn": "air pressure (ROADMAP Queue 1 item 6)",
+    "flux_corr_fn": "surface flux corrections (ROADMAP Queue 1 item 8)",
 }
 
 
@@ -169,6 +170,16 @@ class Model:
                                         use_kernels=self.use_kernels,
                                         engine=fast_loop)
 
+    def _forcing(self, state: State, rho_surf):
+        """The step's surface forcing; a bulk-flux forcing takes the
+        ocean surface state and the Model's use_kernels."""
+        if not self._forcing_takes_state:
+            return self.forcing_fn(state.time)
+        sss = state.t[1][-1] if self.cfg.NT > 1 \
+            else torch.zeros_like(rho_surf)
+        return self.forcing_fn(state.time, state.t[0][-1], sss, rho_surf,
+                               use_kernels=self.use_kernels)
+
     def step(self, state: State) -> State:
         """One baroclinic step (main3d.F:216-1130)."""
         cfg, grid = self.cfg, self.grid
@@ -195,13 +206,7 @@ class Model:
             rho, _, rhoA, rhoS, bvf = rho_eos(cfg, state.t, z_r, Hz, z_w,
                                               use_kernels=kern)
             rho_surf = rho[-1]
-        if self._forcing_takes_state:
-            sss = state.t[1][-1] if cfg.NT > 1 \
-                else torch.zeros_like(rho_surf)
-            forcing = self.forcing_fn(state.time, state.t[0][-1], sss,
-                                      rho_surf, use_kernels=kern)
-        else:
-            forcing = self.forcing_fn(state.time)
+        forcing = self._forcing(state, rho_surf)
         bustr, bvstr = set_vbc.bottom_drag(cfg, grid, state.u, state.v,
                                            Hz, z_r, z_w)
         ghats_flux = None
@@ -290,14 +295,59 @@ class Model:
             ru0_prev2=state.ru0_prev, rv0_prev2=state.rv0_prev,
             z_r=z_r2, z_w=z_w2, Hz=Hz2, mix=mix_new)
 
+    def diagnose(self, state: State) -> dict:
+        """Write-time diagnostic fields (wrt_his.F derived quantities;
+        roms_tpu Model.diagnose): the surface forcing the step applies,
+        the bottom stress, and the vertical mixing coefficients (with the
+        boundary-layer depth Hsbl under LMD-KPP), from the step's own
+        prep code with each kernel on its route (the fused EOS + KPP of
+        kernel 15 on BENCHMARK's route, the EOS of kernel 1 elsewhere).
+        GLS/MY2.5 runs write their coefficients from state.mix."""
+        cfg, grid = self.cfg, self.grid
+        z_r, z_w, Hz = state.z_r, state.z_w, state.Hz
+        route = self.kpp_route
+        if route == "prep":
+            rho_surf = prep_op.surface_rho(cfg, state.t, z_r)
+        else:
+            rho_surf = rho_eos(cfg, state.t, z_r, Hz, z_w,
+                               use_kernels=self.use_kernels)[0][-1]
+        forcing = self._forcing(state, rho_surf)
+        out = {"sustr": forcing.sustr, "svstr": forcing.svstr,
+               "shflux": forcing.stflx[0], "swrad": forcing.srflx}
+        if cfg.NT > 1:
+            out["ssflux"] = forcing.stflx[1]
+        components = getattr(self.forcing_fn, "components", None)
+        if components is not None:
+            sss = state.t[1][-1] if cfg.NT > 1 \
+                else torch.zeros_like(rho_surf)
+            out.update(components(state.time, state.t[0][-1], sss,
+                                  rho_surf))
+        out["bustr"], out["bvstr"] = set_vbc.bottom_drag(
+            cfg, grid, state.u, state.v, Hz, z_r, z_w)
+        if route == "prep":
+            (*_, Akv, Akt, _, hsbl) = prep_op.prep_fused(
+                cfg, grid, state.t, state.u, state.v, Hz, z_r, z_w,
+                forcing, use_kernels=self.use_kernels)
+            out["hsbl"] = hsbl
+        elif cfg.mixing.vmix not in ("gls", "my25"):
+            Akv, Akt = self.vmix_fn(state, grid, z_w)
+        else:
+            return out
+        out["AKv"] = Akv
+        out["AKt"] = Akt[0]
+        if cfg.NT > 1:
+            out["AKs"] = Akt[1]
+        return out
+
     def step_diag(self, state: State):
         """DIAGNOSTICS_TS budgets (step_impl collect_diag)."""
-        raise NotImplementedError("collect_diag tracer budgets: later slice")
+        raise NotImplementedError(
+            "collect_diag tracer budgets: ROADMAP Queue 1 item 10")
 
     def step_diag_uv(self, state: State):
         """DIAGNOSTICS_UV budgets (step_impl collect_diag_uv)."""
         raise NotImplementedError(
-            "collect_diag_uv momentum budgets: later slice")
+            "collect_diag_uv momentum budgets: ROADMAP Queue 1 item 10")
 
     def run(self, state: State, nsteps: int) -> State:
         """Advance nsteps baroclinic steps."""

@@ -1,9 +1,29 @@
 """Analytical applications (port of roms_tpu/functionals/idealized.py).
 
-This slice carries DOUBLE_GYRE (ana_grid.h:273-278, ana_initial.h:
-631-645, ana_smflux.h:198-209): a closed flat-bottom beta-plane basin
-spun up by an antisymmetric zonal wind stress.  The other applications
-arrive with the physics they need.
+The applications whose configurations use only the physics the port
+runs (constant vertical mixing, linear/quadratic/no drag, UP3/C4, djs,
+LF-AM3, closed or EW-periodic walls, no hooks):
+
+BASIN       big flat closed basin, ramped wind (ana_grid.h:237-242,
+            ana_initial.h:559-569, ana_smflux.h:141-152);
+DOUBLE_GYRE closed flat-bottom beta-plane basin spun up by an
+            antisymmetric zonal wind stress (ana_grid.h:273-278,
+            ana_initial.h:631-645, ana_smflux.h:198-209);
+SEAMOUNT    4500 m Gaussian seamount over 5000 m, the pressure-gradient
+            error test (ana_grid.h:346-352, 1032-1039; ana_initial.h:
+            809-816);
+GRAV_ADJ    lock exchange in a 64 km x 20 m channel, no Coriolis, no drag
+            (ana_grid.h:298-304, ana_initial.h:672-686);
+CANYON      stratified flow over a coastal canyon in a periodic channel
+            with geopotential tracer mixing (ana_grid.h:261-266, 946-953;
+            ana_initial.h:598-607);
+WINDBASIN   wind-driven homogeneous rotating basin (ana_grid.h:376-381,
+            ana_initial.h:850-859, ana_smflux.h:331-340);
+CHANNEL     geostrophically balanced Gaussian jet in a periodic f-plane
+            channel (ana_grid.h:255-260, ana_initial.h:218-230, 349-367).
+
+Each grid function takes `device="cuda"` (the default raises without a
+card) like every entry point of the port.
 """
 
 from __future__ import annotations
@@ -13,7 +33,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import (BottomDragConfig, BoundaryConfig, EOSConfig,
+from ..config import (LBC, BottomDragConfig, BoundaryConfig, EOSConfig,
                       MixingConfig, ModelConfig, VerticalCoordConfig,
                       UPSTREAM3, CENTERED4)
 from ..core.state import Forcing, State, initial_state
@@ -41,6 +61,53 @@ def _plane_grid(cfg, Xsize, Esize, depth, f0, beta=0.0, h2d=None,
         f, (Mj, Li)).copy(), xr=xr, yr=yr, device=device)
 
 
+def _yr(cfg: ModelConfig, Esize: float = _ESIZE):
+    """yr of a plane grid of length Esize in eta (float64 numpy)."""
+    Mj, Li = cfg.shape2d
+    dy = Esize / cfg.Mm
+    return (dy * (np.arange(Mj) - 0.5))[:, None] + np.zeros((1, Li))
+
+
+def _tensor(cfg: ModelConfig, grid: Grid, x):
+    return torch.as_tensor(x).to(device=grid.device,
+                                 dtype=torch_dtype(cfg.dtype))
+
+
+def _with_tracers(cfg: ModelConfig, grid: Grid, T, **kw) -> State:
+    """Cold start with temperature T and salinity S0 everywhere."""
+    S = torch.full_like(T, cfg.eos.S0)
+    return initial_state(cfg, grid, t=torch.stack([T, S]), **kw)
+
+
+def _z_r0(cfg: ModelConfig, grid: Grid):
+    """z_r of the resting free surface."""
+    zeta = torch.zeros(cfg.shape2d, dtype=torch_dtype(cfg.dtype),
+                       device=grid.device)
+    return set_depth(grid, zeta)[0]
+
+
+def _forcing(cfg: ModelConfig, grid: Grid, sustr_fn):
+    """forcing(time) with sustr = sustr_fn(time) and no other flux."""
+    Mj, Li = cfg.shape2d
+    dtype = torch_dtype(cfg.dtype)
+    zeros = torch.zeros((Mj, Li), dtype=dtype, device=grid.device)
+    zerosT = torch.zeros((cfg.NT, Mj, Li), dtype=dtype,
+                         device=grid.device)
+
+    def forcing(time):
+        sustr = zeros if sustr_fn is None else sustr_fn(time, zeros)
+        return Forcing(sustr=sustr, svstr=zeros, stflx=zerosT,
+                       btflx=zerosT, srflx=zeros)
+
+    return forcing
+
+
+def zero_forcing(cfg: ModelConfig, grid: Grid):
+    """No surface or bottom fluxes (the apps without analytic forcing;
+    roms_tpu's zero_forcing(cfg) with the grid's device)."""
+    return _forcing(cfg, grid, None)
+
+
 def basin_config(Lm: int = 60, Mm: int = 50, N: int = 10,
                  dt: float = 1800.0, ndtfast: int = 30,
                  dtype: str = "float64") -> ModelConfig:
@@ -62,6 +129,35 @@ def basin_config(Lm: int = 60, Mm: int = 50, N: int = 10,
     )
 
 
+def basin_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    return _plane_grid(cfg, 3600.0e3, 2800.0e3, 5000.0, f0=1.0e-4,
+                       beta=2.0e-11, device=device)
+
+
+def basin_initial(cfg: ModelConfig, grid: Grid) -> State:
+    z_r = _z_r0(cfg, grid)
+    val1 = (44.69 / 39.382) ** 2
+    val2 = val1 * (cfg.rho0 * 800.0 / 9.81) * \
+        (5.0e-5 / ((42.689 / 44.69) ** 2))
+    T = val2 * torch.exp(z_r / 800.0) * (0.6 - 0.4 * torch.tanh(
+        z_r / 800.0))
+    return _with_tracers(cfg, grid, T)
+
+
+def basin_forcing_fn(cfg: ModelConfig, grid: Grid):
+    """Ramped sinusoidal zonal wind (ana_smflux.h:141-152)."""
+    Esize = 2800.0e3
+    cos_y = torch.cos((2.0 * math.pi / Esize) * _tensor(
+        cfg, grid, _yr(cfg, Esize)))
+
+    def sustr(time, zeros):
+        val1 = 5.0e-5 * (1.0 + math.tanh((time - 6.0 * 86400.0)
+                                         / (3.0 * 86400.0)))
+        return -val1 * cos_y
+
+    return _forcing(cfg, grid, sustr)
+
+
 def double_gyre_config(Lm: int = 50, Mm: int = 100, N: int = 10,
                        dt: float = 1800.0, ndtfast: int = 30,
                        dtype: str = "float64") -> ModelConfig:
@@ -79,21 +175,12 @@ def double_gyre_grid(cfg: ModelConfig, device="cuda") -> Grid:
                        beta=2.0e-11, device=device)
 
 
-def _yr(cfg: ModelConfig):
-    Mj, Li = cfg.shape2d
-    dy = _ESIZE / cfg.Mm
-    return (dy * (np.arange(Mj) - 0.5))[:, None] + np.zeros((1, Li))
-
-
 def double_gyre_initial(cfg: ModelConfig, grid: Grid) -> State:
-    dtype = torch_dtype(cfg.dtype)
-    zeta = torch.zeros(cfg.shape2d, dtype=dtype, device=grid.device)
-    z_r, _, _ = set_depth(grid, zeta)
-    yr = torch.as_tensor(_yr(cfg)).to(device=grid.device, dtype=dtype)
+    z_r = _z_r0(cfg, grid)
     val1 = (44.69 / 39.382) ** 2
     val2 = val1 * (cfg.rho0 * 100.0 / 9.81) * \
         (5.0e-5 / ((42.689 / 44.69) ** 2))
-    val4 = yr / _ESIZE
+    val4 = _tensor(cfg, grid, _yr(cfg)) / _ESIZE
     T = cfg.eos.T0 + val2 * torch.exp(z_r / 100.0) * \
         (10.0 - 0.4 * torch.tanh(z_r / 100.0)) - 3.0 * val4[None]
     S = 34.5 - 0.001 * z_r - val4[None]
@@ -102,17 +189,226 @@ def double_gyre_initial(cfg: ModelConfig, grid: Grid) -> State:
 
 def double_gyre_forcing_fn(cfg: ModelConfig, grid: Grid):
     """sustr = -(0.05/rho0) cos(2 pi y/L) (ana_smflux.h:198-209)."""
+    sustr = _tensor(cfg, grid, -0.05 / cfg.rho0 * np.cos(
+        2.0 * math.pi * _yr(cfg) / _ESIZE))
+    return _forcing(cfg, grid, lambda time, zeros: sustr)
+
+
+# ---------------------------------------------------------------------------
+# SEAMOUNT
+# ---------------------------------------------------------------------------
+
+def seamount_config(Lm: int = 49, Mm: int = 48, N: int = 13,
+                    dt: float = 60.0, ndtfast: int = 20,
+                    dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=5.0, theta_b=0.4, Tcline=50.0),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=5.0, S0=35.0,
+                      Tcoef=1.0e-4, Scoef=0.0),
+        mixing=MixingConfig(visc2=100.0, tnu2=(100.0, 100.0),
+                            akv_bak=1.0e-5, akt_bak=(1.0e-6, 1.0e-6)),
+        drag=BottomDragConfig(kind="linear", rdrg=3.0e-4),
+        bc=BoundaryConfig(),           # closed basin
+        rho0=1025.0, gamma2=1.0,
+        hadv=UPSTREAM3, vadv=CENTERED4,
+        uv_hadv="up3", uv_vadv="c4_sw",
+        uv_cor=False, uv_adv=True, curvgrid=False,
+        dtype=dtype,
+    )
+
+
+def seamount_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    def h2d(xr, yr):
+        v1 = (xr - 0.5 * 320.0e3) / 40.0e3
+        v2 = (yr - 0.5 * 320.0e3) / 40.0e3
+        return 5000.0 - 4500.0 * np.exp(-(v1 * v1 + v2 * v2))
+    return _plane_grid(cfg, 320.0e3, 320.0e3, 5000.0, f0=0.0, h2d=h2d,
+                       device=device)
+
+
+def seamount_initial(cfg: ModelConfig, grid: Grid) -> State:
+    T = cfg.eos.T0 + 7.5 * torch.exp(_z_r0(cfg, grid) / 1000.0)
+    return _with_tracers(cfg, grid, T)
+
+
+# ---------------------------------------------------------------------------
+# GRAV_ADJ
+# ---------------------------------------------------------------------------
+
+def grav_adj_config(Lm: int = 128, Mm: int = 4, N: int = 40,
+                    dt: float = 10.0, ndtfast: int = 20,
+                    dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=0.0, theta_b=0.0, Tcline=1e16),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=10.0, S0=35.0,
+                      Tcoef=1.7e-4, Scoef=0.0),
+        mixing=MixingConfig(visc2=10.0, tnu2=(5.0, 5.0),
+                            akv_bak=1.0e-5, akt_bak=(1.0e-6, 1.0e-6)),
+        drag=BottomDragConfig(kind="none"),
+        bc=BoundaryConfig(),           # closed channel
+        rho0=1025.0, gamma2=1.0,
+        hadv=UPSTREAM3, vadv=CENTERED4,
+        uv_hadv="up3", uv_vadv="c4_sw",
+        uv_cor=False, uv_adv=True, curvgrid=False,
+        dtype=dtype,
+    )
+
+
+def grav_adj_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    Esize = cfg.Mm * 64.0e3 / cfg.Lm
+    return _plane_grid(cfg, 64.0e3, Esize, 20.0, f0=0.0, device=device)
+
+
+def grav_adj_initial(cfg: ModelConfig, grid: Grid) -> State:
+    """T0 + 5 for i <= (Lm + 1)/2, T0 beyond (ana_initial.h:672-686)."""
     Mj, Li = cfg.shape2d
-    dtype = torch_dtype(cfg.dtype)
-    dev = grid.device
-    sustr = torch.as_tensor(
-        -0.05 / cfg.rho0 * np.cos(2.0 * math.pi * _yr(cfg) / _ESIZE)
-    ).to(device=dev, dtype=dtype)
-    zeros = torch.zeros((Mj, Li), dtype=dtype, device=dev)
-    zerosT = torch.zeros((cfg.NT, Mj, Li), dtype=dtype, device=dev)
+    icol = np.arange(Li)
+    Tcold = np.where(icol <= (cfg.Lm + 1) // 2, cfg.eos.T0 + 5.0,
+                     cfg.eos.T0)
+    T = _tensor(cfg, grid, np.broadcast_to(Tcold[None, None, :],
+                                           (cfg.N, Mj, Li)).copy())
+    return _with_tracers(cfg, grid, T)
 
-    def forcing(time):
-        return Forcing(sustr=sustr, svstr=zeros, stflx=zerosT,
-                       btflx=zerosT, srflx=zeros)
 
-    return forcing
+# ---------------------------------------------------------------------------
+# CANYON — stratified flow over a coastal canyon in a periodic channel
+# ---------------------------------------------------------------------------
+
+def canyon_config(Lm: int = 65, Mm: int = 48, N: int = 15,
+                  dt: float = 100.0, ndtfast: int = 20,
+                  dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=3.5, theta_b=0.0, Tcline=50.0),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=14.0, S0=35.0,
+                      Tcoef=1.0e-4, Scoef=0.0),
+        mixing=MixingConfig(visc2=5.0, tnu2=(1.0, 1.0),
+                            mix_geo_ts=True),
+        drag=BottomDragConfig(kind="quadratic", rdrg2=3.0e-4),
+        bc=BoundaryConfig.uniform(LBC.ew_periodic()),
+        rho0=1025.0, gamma2=1.0, prsgrd="djs",
+        uv_cor=True, uv_adv=True, dtype=dtype,
+    )
+
+
+def canyon_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    """h = 20 + (4000-20)/2 * (1 + tanh((y - yc(x))/10 km)), with the
+    shelf break indented by the canyon's sin^24 notch
+    (ana_grid.h:946-953)."""
+    Xsize, Esize, depth = 128.0e3, 96.0e3, 4000.0
+
+    def h2d(xr, yr):
+        val1 = 32000.0 - 16000.0 * np.sin(np.pi * xr / Xsize) ** 24
+        return 20.0 + 0.5 * (depth - 20.0) * \
+            (1.0 + np.tanh((yr - val1) / 10000.0))
+
+    return _plane_grid(cfg, Xsize, Esize, depth, f0=1.0e-4, h2d=h2d,
+                       device=device)
+
+
+def canyon_initial(cfg: ModelConfig, grid: Grid) -> State:
+    z_r = _z_r0(cfg, grid)
+    T = 3.488 * torch.exp(z_r / 800.0) * \
+        (1.0 - (2.0 / 3.0) * torch.tanh(z_r / 800.0))
+    return _with_tracers(cfg, grid, T)
+
+
+# ---------------------------------------------------------------------------
+# WINDBASIN — wind-driven homogeneous rotating basin
+# ---------------------------------------------------------------------------
+
+def windbasin_config(Lm: int = 101, Mm: int = 52, N: int = 25,
+                     dt: float = 300.0, ndtfast: int = 30,
+                     dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=0.001, theta_b=0.0,
+                                 Tcline=1e16),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=20.0, S0=35.0,
+                      Tcoef=1.7e-4, Scoef=0.0),
+        mixing=MixingConfig(visc2=2.0),
+        drag=BottomDragConfig(kind="quadratic", rdrg2=3.0e-3),
+        bc=BoundaryConfig(),                   # closed basin
+        rho0=1025.0, gamma2=1.0, dtype=dtype,
+    )
+
+
+def windbasin_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    return _plane_grid(cfg, 2000.0 * cfg.Lm, 1000.0 * cfg.Mm, 50.0,
+                       f0=1.0e-4, device=device)
+
+
+def windbasin_initial(cfg: ModelConfig, grid: Grid) -> State:
+    T = torch.full((cfg.N,) + cfg.shape2d, 20.0,
+                   dtype=torch_dtype(cfg.dtype), device=grid.device)
+    return _with_tracers(cfg, grid, T)
+
+
+def windbasin_forcing_fn(cfg: ModelConfig, grid: Grid):
+    """Westward wind ramped over 2 days, then constant -0.1 N/m2
+    (ana_smflux.h:331-340)."""
+    def sustr(time, zeros):
+        tdays = time / 86400.0
+        amp = -0.1 * math.sin(math.pi * tdays / 4.0) if tdays <= 2.0 \
+            else -0.1
+        return amp / cfg.rho0 + zeros
+
+    return _forcing(cfg, grid, sustr)
+
+
+# ---------------------------------------------------------------------------
+# CHANNEL (channel.h): geostrophically balanced Gaussian jet in a periodic
+# f-plane channel (guscale = 40 km, u0 = 1.6 m/s)
+# ---------------------------------------------------------------------------
+
+def channel_config(Lm: int = 128, Mm: int = 72, N: int = 10,
+                   dt: float = 400.0, ndtfast: int = 20,
+                   dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=0.0, theta_b=0.0,
+                                 Tcline=1e16),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=14.0, S0=35.0,
+                      Tcoef=1.7e-4, Scoef=0.0),
+        mixing=MixingConfig(visc2=100.0, tnu2=(5.0, 5.0)),
+        drag=BottomDragConfig(kind="linear", rdrg=3.0e-4),
+        bc=BoundaryConfig.uniform(LBC.ew_periodic()),
+        rho0=1025.0, gamma2=1.0, dtype=dtype,
+    )
+
+
+def channel_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    return _plane_grid(cfg, 600.0e3, 360.0e3, 500.0, f0=1.0e-4,
+                       device=device)
+
+
+def channel_initial(cfg: ModelConfig, grid: Grid) -> State:
+    """u = u0 exp(-((y - y0)/guscale)^2)/6 in geostrophic balance with
+    zeta (ana_initial.h:218-230, 349-367), from the grid's own yr and f
+    on the host (scipy's erf)."""
+    from scipy.special import erf
+    Mj, Li = cfg.shape2d
+    guscale, u0 = 40.0e3, 1.6
+    y0 = 0.5 * 360.0e3
+    yr = grid.yr.cpu().numpy()
+    f = grid.f.cpu().numpy()
+    val = (yr - y0) / guscale
+    u2d = u0 * np.exp(-val * val) / 6.0
+    zeta = (-u0 * guscale * f * np.sqrt(np.pi) / (12.0 * cfg.g)
+            * erf(val))
+    u3 = _tensor(cfg, grid, np.broadcast_to(u2d, (cfg.N, Mj, Li)).copy())
+    T = torch.full((cfg.N, Mj, Li), 14.0, dtype=torch_dtype(cfg.dtype),
+                   device=grid.device)
+    return _with_tracers(cfg, grid, T, zeta=_tensor(cfg, grid, zeta),
+                         u=u3)
+
+
+def channel_forcing_fn(cfg: ModelConfig, grid: Grid):
+    return zero_forcing(cfg, grid)

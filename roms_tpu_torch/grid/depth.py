@@ -16,7 +16,7 @@ from .grid import Grid
 def set_depth(grid: Grid, zeta):
     """(z_r, z_w, Hz) for the free surface `zeta` at RHO points."""
     if grid.zice is not None:
-        raise NotImplementedError("ICESHELF set_depth: later slice")
+        raise NotImplementedError("ICESHELF set_depth: ROADMAP Queue 1 item 8")
     h = grid.h
     hc = grid.hc
     sc_r = grid.sc_r[:, None, None]

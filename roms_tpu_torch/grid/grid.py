@@ -83,7 +83,7 @@ def build_grid(cfg: ModelConfig, *, h, pm, pn, f,
     grid.build_grid semantics; zice must be None in this slice)."""
     if zice is not None:
         raise NotImplementedError(
-            "ICESHELF grids (zice) are not ported yet: later slice")
+            "ICESHELF grids (zice): ROADMAP Queue 1 item 8")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     shp = cfg.shape2d

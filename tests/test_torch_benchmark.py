@@ -461,6 +461,15 @@ def test_port_functionals_match_roms_tpu(func_pair):
         got = tf(*args, use_kernels=kern)
         for r_, x in zip(fr, got):
             assert rel_err(r_, x) < TOL
+    # the history writer's diagnosed fields (Model.diagnose): forcing and
+    # its bulk components, bottom stress, KPP's AKv/AKt/AKs and Hsbl from
+    # the prep route, within the trajectory bound
+    ref = stepping.Model(cfg, grid, bm.make_bulk_forcing_fn(
+        cfg, grid)).diagnose(s)
+    got = tstepping.Model(tcfg, g, tf).diagnose(ts)
+    assert sorted(ref) == sorted(got)
+    for name, x in ref.items():
+        assert rel_err(x, got[name]) < 1e-10, name
 
 
 def test_benchmark_grid_needs_a_card_or_cpu(monkeypatch):

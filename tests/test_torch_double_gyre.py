@@ -75,6 +75,9 @@ def test_port_imports_neither_jax_nor_roms_tpu():
         "import roms_tpu_torch.ops.flux, roms_tpu_torch.ops.prsgrd\n"
         "import roms_tpu_torch.ops.uvmix, roms_tpu_torch.ops.step2d\n"
         "import roms_tpu_torch.functionals.upwelling\n"
+        "import roms_tpu_torch.__main__, roms_tpu_torch.core.diag\n"
+        "import roms_tpu_torch.io.output, roms_tpu_torch.io.state_nc\n"
+        "import roms_tpu_torch.io.rst_netcdf, roms_tpu_torch.io.sta_netcdf\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'roms_tpu' or m.startswith('roms_tpu.')]\n"
@@ -90,6 +93,25 @@ UNPORTED = sorted(tstepping._LATER) + [
     "bc=radiation"]
 # refusals that name the ROADMAP item that ports them
 ROADMAP_ITEM = {"obc_fn": "ROADMAP Queue 1 item 6",
+                "clm_fn": "ROADMAP Queue 1 item 6",
+                "sources": "ROADMAP Queue 1 item 6",
+                "eq_tide_fn": "ROADMAP Queue 1 item 6",
+                "pair_fn": "ROADMAP Queue 1 item 6",
+                "bio_fn": "ROADMAP Queue 1 item 8",
+                "sed_fn": "ROADMAP Queue 1 item 8",
+                "bbl_fn": "ROADMAP Queue 1 item 8",
+                "ice_fn": "ROADMAP Queue 1 item 8",
+                "wec_fn": "ROADMAP Queue 1 item 8",
+                "flux_corr_fn": "ROADMAP Queue 1 item 8",
+                "step_diag": "ROADMAP Queue 1 item 10",
+                "step_diag_uv": "ROADMAP Queue 1 item 10",
+                "vmix=lmd": "LMD_BKPP.*ROADMAP Queue 1 item 5",
+                "ddmix=1": "ROADMAP Queue 1 item 5",
+                "prsgrd=fv": "ROADMAP Queue 1 item 7",
+                "step2d=fb": "ROADMAP Queue 1 item 7",
+                "mix_iso_ts=1": "ROADMAP Queue 1 item 7",
+                "mix_geo_uv=1": "ROADMAP Queue 1 item 7",
+                "smagorinsky=1": "ROADMAP Queue 1 item 7",
                 "bc=radiation": "open boundary 'radiation' .*ROADMAP Queue 1 "
                                 "item 6",
                 "bc=ns_periodic": "NS-periodic grids: ROADMAP Queue 1 item 4",

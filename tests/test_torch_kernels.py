@@ -353,7 +353,25 @@ def _gate_configs():
         "benchmark3_constant_vmix": (mixing(bm3, vmix="constant"), True),
         "benchmark3_tnu_zero": (mixing(bm3, tnu2=(0.0, 0.0)), True),
     })
+    # the analytical apps that need only ported physics, at their
+    # published sizes: one case that loops over them
+    out["analytical_apps"] = [
+        (getattr(ia, f"{app}_config")(dtype="float32"), False)
+        for app in APP_KERNELS]
     return out
+
+
+# the kernels each analytical app's float32 step runs on one TPU
+APP_KERNELS = {
+    "basin": {"rho", "tadv", "rhs3d", "uv", "vdiff"},
+    "seamount": {"rho", "tadv", "rhs3d", "uv", "vdiff"},
+    "grav_adj": {"rho", "tadv", "rhs3d", "uv", "vdiff"},
+    "windbasin": {"rho", "tadv", "rhs3d", "uv", "vdiff"},
+    "canyon": {"flux", "rho", "tadv", "prsgrd", "rhs3d", "uvmix",
+               "fast_loop_pallas_res", "uv", "vdiff", "hmix"},
+    "channel": {"flux", "rho", "tadv", "prsgrd", "rhs3d", "uvmix",
+                "fast_loop_pallas_res", "uv", "vdiff"},
+}
 
 
 BENCHMARK3_FULL = {"flux", "prep", "tadv", "prsgrd", "rhs3d", "uvmix",
@@ -373,11 +391,18 @@ def test_port_gates_match_roms_tpu(monkeypatch, name):
     the channel at the published and the full width (all nine), with
     the GLS and MY2.5 closures (ten, the tridiagonal solve added),
     BENCHMARK3 with the full physics (eleven) and its light variant
-    (ten), and configurations just outside each class."""
+    (ten), configurations just outside each class, and the six
+    analytical apps at their published sizes (APP_KERNELS)."""
     for var in [v for v in os.environ if v.startswith("ROMS_TPU_")]:
         monkeypatch.delenv(var)
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(jax, "device_count", lambda: 1)
+    if name == "analytical_apps":
+        for app, (cfg, bulk) in zip(APP_KERNELS, _gate_configs()[name]):
+            fired = _fired(cfg, bulk)
+            assert fired == APP_KERNELS[app], (app, fired)
+            assert _port_fired(cfg, bulk) == fired, app
+        return
     cfg, bulk = _gate_configs()[name]
     fired = _fired(cfg, bulk)
     if name in REFUSED_TRIDIAG_ROUTES:
