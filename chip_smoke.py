@@ -30,8 +30,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      multiple of the block size and at the full width; the batched
      tridiagonal solve of the GLS/MY2.5 path on seeded diagonally
      dominant systems and on the four real systems of a GLS and of a
-     MY2.5 step at the same sizes; the j-blocked fast loop (kernel 12) on
-     the UPWELLING and BENCHMARK3 states (the latter's nfast = 29 odd),
+     MY2.5 step at the same sizes, and kernels 1 (JM95) and 17 at the
+     BENCHMARK3 shapes of the whole-array LMD route, kernel 17 also on
+     the eight real systems of a step with LMD_BKPP and LMD_DDMIX; the
+     j-blocked fast loop (kernel 12) on the UPWELLING and BENCHMARK3
+     states (the latter's nfast = 29 odd),
      float64 rel <= 1e-11, with its difference from the resident fast
      loop (kernel 11) on the same inputs; the redesigned kernel 12 bitwise
      against kernel 11 and within the tolerance of the plain loop in both
@@ -67,9 +70,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (Kantha-Clayson) and the MY2.5 closure (the turbulence fields too)
      and BENCHMARK full physics Lm=64, Mm=32, N=16, all but the first
      from a zonally varying state; UPWELLING (analytic and GLS) and
-     BENCHMARK again with `Model(fast_loop="blocked")`; BASIN, SEAMOUNT,
-     GRAV_ADJ, WINDBASIN, CANYON and CHANNEL at their published sizes,
-     from their initial states with the same seeded noise;
+     BENCHMARK again with `Model(fast_loop="blocked")`; BENCHMARK with
+     LMD_BKPP and LMD_DDMIX (`benchmark_lmd_bl`, the whole-array LMD
+     route); BASIN, SEAMOUNT, GRAV_ADJ, WINDBASIN, CANYON, CHANNEL,
+     LAKE_SIGNELL, LMD_TEST, MIXED_LAYER and LAB_CANYON at their
+     published sizes, from their initial states with the same seeded
+     noise; every kernel launched exactly its path's count and no other,
+     and a line saying whether the kernel path is bitwise equal;
   4. full width, float32, 10 steps after a warm-up step, ms/step from
      CUDA events, each entry point's launches in the run and no plain
      version called: DOUBLE_GYRE Lm=512, Mm=1024, N=30 (dt=240 s; finite
@@ -80,7 +87,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      or above the closure's floors) and BENCHMARK3 full physics
      Lm=2048, Mm=256, N=30 (dt = 150 s, ndtfast = 20 as published;
      finite fields, interior volume, the KPP boundary layer inside the
-     water column); BENCHMARK3 and UPWELLING again with the j-blocked
+     water column); `benchmark_lmd_bl`, BENCHMARK3 full physics with
+     LMD_BKPP and LMD_DDMIX at the same size (kernel 1 once and kernel 17
+     eight times a step at (29, 258, 2050), no prep; both boundary
+     layers inside the water column), its ms/step beside BENCHMARK3's;
+     BENCHMARK3 and UPWELLING again with the j-blocked
      fast loop (15 and 21 launches of kernel 12 a step, none of kernel
      11), the fast loop's own time inside the step under each engine,
      and kernel 12's design floor and device scratch; then each kernel's
@@ -89,7 +100,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the larger of its bytes and its issue floor, the warp instructions
      on the shortest path through its SASS over the card's issue rate)
      and, for the tridiagonal solve, torch.linalg.solve on the same
-     systems; after
+     systems (kernels 1 and 17 at the LMD path's shapes); after
      the checks, three more 10-step windows of each app, timed by CUDA
      events and on the host, and the card's SM clock during a fourth,
      for the step's spread within one call;
@@ -103,7 +114,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      against the final state, and 3 + 3 float64 steps through
      read_restart against 6 at 48 x 64 x 16; (c) as subprocesses, all
      started together, the BENCHMARK deck at 64 x 32 x 16 and each of
-     the six apps' decks at its published size, 3 steps each, exit 0;
+     the ten apps' decks at its published size, 3 steps each, exit 0;
   last, torch.profiler's device kernels of one bulk_flux call (only
   csrc/bulk.cu's: its wrapper launches no PyTorch operation).
 The line before the last is the kernels JSON; the last line is
@@ -183,12 +194,18 @@ def main():
     for app in APPS:
         slice_parity(torch, app)
     counts = {app: full_width(torch, app) for app in full}
+    print(f"full width benchmark_lmd_bl {BARE_MS['benchmark_lmd_bl']:.3f} "
+          f"ms/step beside the default BENCHMARK3's "
+          f"{BARE_MS['benchmark']:.3f} ms/step in this call (CUDA events, "
+          f"10 steps each) [{CARD}]", flush=True)
     # one row per entry point, at the newest path that times it (the GLS
     # path times only the solve it adds to the channel's kernels, the
-    # blocked paths only kernel 12, whose row is BENCHMARK3's)
+    # blocked paths only kernel 12, whose row is BENCHMARK3's, the LMD
+    # path kernels 1 and 17 at BENCHMARK3's shapes)
     table = []
-    for app in ("benchmark_blocked", "upwelling_blocked", "upwelling_gls",
-                "benchmark", "upwelling", "double_gyre"):
+    for app in ("benchmark_lmd_bl", "benchmark_blocked",
+                "upwelling_blocked", "upwelling_gls", "benchmark",
+                "upwelling", "double_gyre"):
         rows = kernel_table(torch, app, counts[app])
         done = {row["name"] for row in table}
         table += [row for row in rows if row["name"] not in done]
@@ -351,19 +368,44 @@ for _app, _launches, _alone in (("upwelling", 21, True),
         per_step=dict(_spec.get("per_step", {}),
                       fast_loop_blocked=_launches))
 BLOCKED = [a for a in APPS if a.endswith("_blocked")]
+# BENCHMARK3 with LMD's bottom boundary layer and double diffusion
+# (BL_TEST's closure set, roms_tpu/functionals/idealized.py:874): the
+# whole-array LMD route, kernel 1's EOS in place of prep's and kernel 17
+# eight times a step at (N-1, Mj, Li) (two solves of the interior shear,
+# three of the surface layer, three of the bottom one); the other entry
+# points are checked under "benchmark" at the same shapes, kernel 1 here
+# at BENCHMARK3's (JM95) and kernel 17 on seeded systems and on the eight
+# real systems of a step
+APPS["benchmark_lmd_bl"] = dict(
+    APPS["benchmark"], base="benchmark", off_path=[],
+    entries=[n for n in SOURCES
+             if n not in ("kpp", "prep", "fast_loop_blocked")],
+    checked=["rho_eos", "tridiag"], per_step={"tridiag": 8},
+    mixing=dict(bkpp=True, ddmix=True))
 # the analytical apps that need only ported physics: phase 3's parity at
 # their published sizes (the config defaults, parity None), the closed
 # basins on the DOUBLE_GYRE kernels, the channels on UPWELLING's and
-# CANYON with the rotated tracer mixing (tests/test_torch_kernels.py
-# APP_KERNELS)
-IDEALIZED = ("basin", "seamount", "grav_adj", "windbasin", "canyon",
-             "channel")
-for _app in IDEALIZED:
+# CANYON with the rotated tracer mixing; LAKE_SIGNELL's closed lake with
+# GLS (four solves a step), the NS-periodic LMD_TEST (LMD_BKPP, eight),
+# MIXED_LAYER (GLS, four) and LAB_CANYON outside every tiled kernel's
+# class (tests/test_torch_kernels.py APP_KERNELS)
+IDEALIZED = {"basin": SLICE1, "seamount": SLICE1, "grav_adj": SLICE1,
+             "windbasin": SLICE1, "canyon": SLICE2 + ["rot_div_geo"],
+             "channel": SLICE2, "lake_signell": SLICE1 + ["tridiag"],
+             "lmd_test": ["rho_eos", "spline_vdiff", "tridiag"],
+             "mixed_layer": ["rho_eos", "spline_vdiff", "tridiag"],
+             "lab_canyon": ["rho_eos", "spline_vdiff"]}
+IDEALIZED_SOLVES = {"lake_signell": 4, "lmd_test": 8, "mixed_layer": 4}
+for _app, _entries in IDEALIZED.items():
     APPS[_app] = dict(
-        entries=SLICE2 + ["rot_div_geo"] if _app == "canyon" else (
-            SLICE2 if _app == "channel" else SLICE1),
-        dt=None, kernel_sizes=(), parity=(None, None, None, None),
-        full=None)
+        entries=_entries, dt=None, kernel_sizes=(),
+        parity=(None, None, None, None), full=None,
+        per_step={"tridiag": IDEALIZED_SOLVES[_app]}
+        if _app in IDEALIZED_SOLVES else {})
+# the laboratory tank (2.5-12.5 cm deep, azimuthal cells down to 3.5 mm)
+# moves at mm/s: 5 cm/s of noise blows it up within three steps in
+# either path, 5 mm/s does not
+APPS["lab_canyon"]["noise"] = 0.005
 
 
 def app_setup(app, Lm, Mm, N, dtype, dt):
@@ -392,6 +434,9 @@ def app_setup(app, Lm, Mm, N, dtype, dt):
         from roms_tpu_torch.functionals import benchmark as bm
         cfg = bm.make_config(Lm=Lm, Mm=Mm, N=N, dt=dt, dtype=dtype,
                              full_physics=True)
+        if closure:
+            cfg = cfg.replace(mixing=dataclasses.replace(cfg.mixing,
+                                                         **closure))
         grid = bm.make_grid(cfg, device=DEVICE)
         return cfg, grid, bm.make_initial(cfg, grid), dict(
             forcing_fn=bm.make_bulk_forcing_fn(cfg, grid))
@@ -698,9 +743,10 @@ def kernel_phase_checks(torch):
                           f"abs {abs_err:.3e}", flush=True)
                 if spec.get("mixing"):
                     systems = closure_systems(torch, app, Lm, Mm, N, dtype)
-                    if len(systems) != 4:
+                    want = spec["per_step"]["tridiag"]
+                    if len(systems) != want:
                         FAILURES.append(f"{app}: {len(systems)} tridiag "
-                                        "solves in a step, expected 4")
+                                        f"solves in a step, expected {want}")
                     for i, args in enumerate(systems):
                         rel, abs_err = compare(torch, "tridiag", args,
                                                dtype)
@@ -1128,8 +1174,10 @@ def blocked_check(torch, args, dtype):
 
 def closure_systems(torch, app, Lm, Mm, N, dtype):
     """The tridiagonal systems (lower, diag, upper, rhs) that the second
-    step of the app's model solves from a zonally varying state: two
-    spline shear solves and the two turbulence solves."""
+    step of the app's model solves from a zonally varying state: under
+    GLS/MY2.5 two spline shear solves and the two turbulence solves, on
+    the whole-array LMD route the eight spline solves of the interior
+    shear and the two boundary layers."""
     from roms_tpu_torch.ops import tridiag
     model, s = make_model(torch, app, Lm, Mm, N, dtype, True,
                           APPS[app]["dt"], True)
@@ -1155,7 +1203,8 @@ def closure_systems(torch, app, Lm, Mm, N, dtype):
 def make_model(torch, app, Lm, Mm, N, dtype, use_kernels, dt, perturb):
     """Model and initial state; `perturb` adds seeded zonally varying
     noise to u, v and t (keeping the app's own zeta, u and v, such as
-    CHANNEL's jet), so EW-periodic seam errors cannot cancel."""
+    CHANNEL's jet), so EW-periodic seam errors cannot cancel: 0.05 m/s
+    in u and v unless the app's spec sets its "noise"."""
     from roms_tpu_torch.core.state import initial_state
     from roms_tpu_torch.core.stepping import Model
     cfg, grid, s, kw = app_setup(app, Lm, Mm, N, dtype, dt)
@@ -1166,9 +1215,10 @@ def make_model(torch, app, Lm, Mm, N, dtype, use_kernels, dt, perturb):
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=DEVICE,
                                dtype=grid.dtype)
+        un = APPS[app].get("noise", 0.05)
         s = initial_state(cfg, grid, zeta=s.zeta,
-                          u=s.u + 0.05 * rnd(*shp3) * grid.umask,
-                          v=s.v + 0.05 * rnd(*shp3) * grid.vmask,
+                          u=s.u + un * rnd(*shp3) * grid.umask,
+                          v=s.v + un * rnd(*shp3) * grid.vmask,
                           t=s.t + 0.1 * rnd(*s.t.shape))
     return Model(cfg, grid, use_kernels=use_kernels,
                  fast_loop=APPS[app].get("fast_loop", "resident"), **kw), s
@@ -1188,24 +1238,31 @@ def slice_parity(torch, app):
                           perturb)
     b = model.run(s, 5)
     per_step = APPS[app].get("per_step", {})
-    for name in APPS[app]["entries"]:
-        if _lib.launches[name] != 5 * per_step.get(name, 1):
-            fail(f"{app} parity: {name} launched {_lib.launches[name]} "
-                 "times in 5 steps")
+    for name, n in _lib.launches.items():
+        want = 5 * per_step.get(name, 1) \
+            if name in APPS[app]["entries"] else 0
+        if n != want:
+            fail(f"{app} parity: {name} launched {n} times in 5 steps, "
+                 f"expected {want}")
     pairs = [(f, getattr(a, f), getattr(b, f))
              for f in ("zeta", "ubar", "vbar", "u", "v", "t")]
     if a.mix is not None:
         pairs += [(f, getattr(a.mix, f), getattr(b.mix, f))
                   for f in a.mix._fields]
+    same = True
     for f, x, y in pairs:
         if not torch.isfinite(y).all():
             fail(f"{app} slice parity: {f} not finite")
         d = float((x - y).abs().max())
         scale = float(x.abs().max())
+        same = same and torch.equal(x, y)
         print(f"{app} slice parity {f:8s}: max|diff| {d:.3e}  max|x| "
               f"{scale:.3e}", flush=True)
         if d >= 1e-10 * scale + 5e-14:
             fail(f"{app} slice parity {f}: {d:.3e} vs {scale:.3e}")
+    print(f"{app} slice parity: kernel path "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'} to "
+          f"use_kernels=False over every field", flush=True)
     _lib.reset_launches()
 
 
@@ -1302,7 +1359,22 @@ def full_width(torch, app):
     # float32 roundoff: the interior mean stays within eps32*max|zeta|
     if not abs(vol) <= 1.2e-7 * zmax:
         fail(f"{app}: interior volume not conserved to float32 roundoff")
-    if APPS[app].get("base", app) == "benchmark":
+    if APPS[app].get("mixing", {}).get("bkpp"):
+        # the surface and bottom boundary layers of the last state, from
+        # the write-time diagnostics (the step's own route), lie in the
+        # water column
+        d = model.diagnose(s)
+        for name in ("hsbl", "hbbl"):
+            h = d[name]
+            out = int(((h < s.z_w[0]) | (h > s.z_w[-1])).sum())
+            zbl = (s.z_w[-1] - h) if name == "hsbl" else (h - s.z_w[0])
+            print(f"{app} {name} thickness {float(zbl.min()):.2f} to "
+                  f"{float(zbl.max()):.2f} m, mean {float(zbl.mean()):.2f} "
+                  f"m; columns outside [z_w[0], z_w[N]]: {out}",
+                  flush=True)
+            if out or not torch.isfinite(h).all():
+                fail(f"{app}: {name} outside the water column")
+    elif APPS[app].get("base", app) == "benchmark":
         # the boundary layer of the last state lies in the water column
         from roms_tpu_torch.ops import prep
         from roms_tpu_torch.ops.prep import surface_rho

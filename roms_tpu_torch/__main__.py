@@ -38,16 +38,11 @@ _UNPORTED = {
     "SOLITON": "the 2D-only engine with C4 momentum advection (ROADMAP "
                "Queue 1 item 7)",
     "OVERFLOW": "isopycnal tracer mixing (ROADMAP Queue 1 item 7)",
-    "LAKE_SIGNELL": "logarithmic drag (ROADMAP Queue 1 item 4)",
     "ESTUARY_TEST": "open boundaries (ROADMAP Queue 1 item 6)",
     "RIVERPLUME1": "open boundaries and point sources (ROADMAP Queue 1 "
                    "item 6)",
     "RIVERPLUME2": "open boundaries and point sources (ROADMAP Queue 1 "
                    "item 6)",
-    "LMD_TEST": "NS-periodic grids (ROADMAP Queue 1 item 4) and LMD_BKPP "
-                "(ROADMAP Queue 1 item 5)",
-    "MIXED_LAYER": "NS-periodic grids and logarithmic drag (ROADMAP "
-                   "Queue 1 item 4)",
     "SED_TOY": "sediment (ROADMAP Queue 1 item 8)",
     "BL_TEST": "open boundaries (ROADMAP Queue 1 item 6)",
     "FLT_TEST": "BODYFORCE (ROADMAP Queue 1 item 7) and floats (ROADMAP "
@@ -62,7 +57,6 @@ _UNPORTED = {
     "TEST_HEAD": "open boundaries (ROADMAP Queue 1 item 6)",
     "TEST_CHAN": "open boundaries (ROADMAP Queue 1 item 6)",
     "SED_TEST1": "open boundaries (ROADMAP Queue 1 item 6)",
-    "LAB_CANYON": "NS-periodic grids (ROADMAP Queue 1 item 4)",
     "DOGBONE": "nesting (ROADMAP Queue 1 item 11)",
     "DAMEE_4": "the NetCDF grid and forcing readers (ROADMAP Queue 1 "
                "item 6)",
@@ -82,7 +76,8 @@ _FILE_KEYWORDS = {
 # the ported apps whose header physics (mixing closure, rotated
 # diffusion, drag law, EOS, LBC set, wet/dry) roms_tpu's driver merges
 # over the deck's; roms_tpu's other header apps join as they are ported
-_HEADER_APPS = ("CANYON", "WINDBASIN", "CHANNEL")
+_HEADER_APPS = ("CANYON", "LAKE_SIGNELL", "WINDBASIN", "LMD_TEST",
+                "MIXED_LAYER", "CHANNEL")
 
 
 def _app_module(name: str):
@@ -113,6 +108,16 @@ def _app_module(name: str):
                       ia.windbasin_initial, ia.windbasin_forcing_fn, None),
         "CHANNEL": (ia.channel_config, ia.channel_grid, ia.channel_initial,
                     ia.channel_forcing_fn, None),
+        "LAKE_SIGNELL": (ia.lake_signell_config, ia.lake_signell_grid,
+                         ia.lake_signell_initial, ia.lake_signell_forcing_fn,
+                         None),
+        "LMD_TEST": (ia.lmd_test_config, ia.lmd_test_grid,
+                     ia.lmd_test_initial, ia.lmd_test_forcing_fn, None),
+        "MIXED_LAYER": (ia.mixed_layer_config, ia.mixed_layer_grid,
+                        ia.mixed_layer_initial, ia.mixed_layer_forcing_fn,
+                        None),
+        "LAB_CANYON": (ia.lab_canyon_config, ia.lab_canyon_grid,
+                       ia.lab_canyon_initial, ia.zero_forcing, None),
     }
     keys = set(table) | set(_UNPORTED)
     for key in sorted(keys, key=len, reverse=True):

@@ -2,8 +2,12 @@
 
 This slice carries the reference defaults: UPSTREAM3 and CENTERED4
 horizontal fluxes and the CENTERED4 vertical flux (pre_step3d.F:
-262-650, step3d_t.F:343-1205).  The fused all-tracer update built on
-them is kernel 2 (ops/tadv.py).
+262-650, step3d_t.F:343-1205), and the tracer predictor and corrector
+built on them, in roms_tpu's jnp association with its ring rows.  The
+fused all-tracer update is kernel 2 (ops/tadv.py), whose plain version
+is these updates with rows j = 0 and Mj-1 zeroed; the step takes the
+updates here outside the kernel's class (NS-periodic grids, where those
+rows are live).
 """
 
 from __future__ import annotations
@@ -77,3 +81,43 @@ def vadv_flux(cfg: ModelConfig, q, W, Hz, scheme: str):
     FC1 = W[1] * (cff1 * q[0] + cff2 * q[1] - cff3 * q[2])
     FCn = W[N - 1] * (cff1 * q[-1] + cff2 * q[-2] - cff3 * q[-3])
     return torch.cat([zeros, FC1[None], FCi, FCn[None], zeros], dim=0)
+
+
+def _divergences(cfg: ModelConfig, grid: Grid, itrc: int, q, Huon, Hvom,
+                 W, Hz):
+    """The horizontal and vertical flux divergences of tracer itrc's
+    field q, with the tracer's own schemes."""
+    FX, FE = hadv_flux(cfg, grid, q, Huon, Hvom, cfg.tracer_hadv(itrc))
+    FC = vadv_flux(cfg, q, W, Hz, cfg.tracer_vadv(itrc))
+    return st.dx_p(FX) + st.dy_p(FE), FC[1:] - FC[:-1]
+
+
+def tracer_predictor(cfg: ModelConfig, grid: Grid, t, t_prev, Huon, Hvom,
+                     W, Hz, cff, cff1, cff2):
+    """t_half of all tracers before bc_rho (pre_step3d.F:260-700): the
+    AB2 blend advected by half a step over the implied new thickness."""
+    pmn = grid.pm * grid.pn
+    out = []
+    for itrc in range(cfg.NT):
+        hdiv, vdiv = _divergences(cfg, grid, itrc, t[itrc], Huon, Hvom, W,
+                                  Hz)
+        th = Hz * (cff1 * t[itrc] + cff2 * t_prev[itrc]) - \
+            cff * pmn * hdiv
+        DC = 1.0 / (Hz - cff * pmn * (st.dx_p(Huon) + st.dy_p(Hvom)
+                                      + (W[1:] - W[:-1])))
+        out.append(DC * (th - cff * pmn * vdiv))
+    return torch.stack(out)
+
+
+def tracer_corrector(cfg: ModelConfig, grid: Grid, t_half, t_part, Huon,
+                     Hvom, W, Hz):
+    """Pre-diffusion Hz-weighted tn of all tracers (step3d_t.F:
+    343-1205): t_part - dt*pmn*(hdiv + vdiv), added in that order."""
+    pmn = grid.pm * grid.pn
+    out = []
+    for itrc in range(cfg.NT):
+        hdiv, vdiv = _divergences(cfg, grid, itrc, t_half[itrc], Huon,
+                                  Hvom, W, Hz)
+        tn = t_part[itrc] + -cfg.dt * pmn * hdiv
+        out.append(tn + -cfg.dt * pmn * vdiv)
+    return torch.stack(out)

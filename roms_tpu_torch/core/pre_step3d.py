@@ -2,7 +2,8 @@
 roms_tpu/core/pre_step3d.py; ROMS/Nonlinear/pre_step3d.F).
 
 t_half comes from the fused UP3/C4 tracer predictor (kernel 2,
-ops/tadv.py); the corrector seeds t_part/u_part/v_part are
+ops/tadv.py) in its class, else from core/advection.py; the corrector
+seeds t_part/u_part/v_part are
 column-local tensor code.
 """
 
@@ -33,8 +34,12 @@ def pre_step3d(cfg: ModelConfig, grid: Grid, u, v, t, t_prev,
     t_prev at n-1, ru_prev/ru_prev2 the RHS at n-1/n-2.  ghats: the
     KPP nonlocal flux Akt*ghats (NAT, N+1, Mj, Li), or None."""
     from ..ops import tadv
+    from .advection import tracer_predictor
     cff, cff1, cff2 = tracer_predictor_coefs(cfg, iic)
-    fn = tadv.predictor if use_kernels else tadv.predictor_plain
+    if tadv.covers(cfg):
+        fn = tadv.predictor if use_kernels else tadv.predictor_plain
+    else:
+        fn = tracer_predictor
     t_half = fn(cfg, grid, t, t_prev, Huon, Hvom, W, Hz, cff, cff1, cff2)
     t_half = boundary.bc_rho(t_half, cfg.bc.t)
     return (t_half, *_seeds(cfg, grid, u, v, t, ru_prev, rv_prev,

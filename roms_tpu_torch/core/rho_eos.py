@@ -76,6 +76,61 @@ def rho_eos_jm95(cfg: ModelConfig, t, z_r):
     return rho - 1000.0
 
 
+def eos_alpha_beta(cfg: ModelConfig, t, z_r):
+    """Thermal expansion alpha (1/C), saline contraction beta (1/PSU) and
+    their ratio alfaobeta = Tcof/Scof of the JM95 polynomial at every
+    level given, from its derivatives written out (rho_eos.F:276-340,
+    427-465, EOS_TDERIVATIVE), as roms_tpu's `eos_alpha_beta(...,
+    all_levels=True)` writes them, whatever the configuration's EOS:
+    LMD_DDMIX's profile at the interior W interfaces (core/stepping.py
+    passes T and S averaged to z_w)."""
+    Q = _Q
+    T, S, sqrtS, den1, b0, b1, b2 = _jm95_parts(cfg, t)
+
+    # d(den1)/dT, d(den1)/dS (rho_eos.F:276-296)
+    dC0 = Q["Q01"] + T * (2.0 * Q["Q02"] + T * (3.0 * Q["Q03"]
+          + T * (4.0 * Q["Q04"] + T * 5.0 * Q["Q05"])))
+    dC1 = Q["U01"] + T * (2.0 * Q["U02"] + T * (3.0 * Q["U03"]
+          + T * 4.0 * Q["U04"]))
+    dC2 = Q["V01"] + T * 2.0 * Q["V02"]
+    C1 = Q["U00"] + T * (Q["U01"] + T * (Q["U02"] + T * (Q["U03"]
+         + T * Q["U04"])))
+    C2 = Q["V00"] + T * (Q["V01"] + T * Q["V02"])
+    Dden1DS = C1 + 1.5 * C2 * sqrtS + 2.0 * Q["W00"] * S
+    Dden1DT = dC0 + S * (dC1 + sqrtS * dC2)
+
+    # d(bulk)/dT, d(bulk)/dS (rho_eos.F:310-340)
+    dC3 = Q["A01"] + T * (2.0 * Q["A02"] + T * (3.0 * Q["A03"]
+          + T * 4.0 * Q["A04"]))
+    dC4 = Q["B01"] + T * (2.0 * Q["B02"] + T * 3.0 * Q["B03"])
+    dC5 = Q["D01"] + T * 2.0 * Q["D02"]
+    dC6 = Q["E01"] + T * (2.0 * Q["E02"] + T * 3.0 * Q["E03"])
+    dC7 = Q["F01"] + T * 2.0 * Q["F02"]
+    dC8 = Q["G02"] + T * 2.0 * Q["G03"]
+    dC9 = Q["H01"] + T * 2.0 * Q["H02"]
+    C4 = Q["B00"] + T * (Q["B01"] + T * (Q["B02"] + T * Q["B03"]))
+    C5 = Q["D00"] + T * (Q["D01"] + T * Q["D02"])
+    C7 = Q["F00"] + T * (Q["F01"] + T * Q["F02"])
+    C9 = Q["H00"] + T * (Q["H01"] + T * Q["H02"])
+    Tp = z_r
+    DbulkDS = C4 + sqrtS * 1.5 * C5 - Tp * (C7 + sqrtS * 1.5 * Q["G00"]
+                                            - Tp * C9)
+    DbulkDT = dC3 + S * (dC4 + sqrtS * dC5) - Tp * (dC6 + S * dC7
+              - Tp * (dC8 + S * dC9))
+
+    # assemble (rho_eos.F:440-465)
+    bulk = b0 - Tp * (b1 - Tp * b2)
+    Tpr10 = 0.1 * Tp
+    den = den1 * bulk / (bulk + Tpr10)
+    cff = bulk + Tpr10
+    cff1 = Tpr10 * den1
+    cff2 = bulk * cff
+    wrk = den * cff * cff
+    Tcof = -(DbulkDT * cff1 + Dden1DT * cff2)
+    Scof = (DbulkDS * cff1 + Dden1DS * cff2)
+    return Tcof / wrk, Scof / wrk, Tcof / Scof
+
+
 def rho_eos(cfg: ModelConfig, t, z_r, Hz, z_w, use_kernels: bool = True):
     """(rho, pden, rhoA, rhoS, bvf) — see ops/rho.py."""
     from ..ops import rho as rho_op

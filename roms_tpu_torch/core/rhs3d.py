@@ -176,9 +176,13 @@ def rhs3d_terms(cfg: ModelConfig, grid: Grid, u, v, Hz, Huon, Hvom, W,
 
 def rhs3d_momentum(cfg: ModelConfig, grid: Grid, u, v, Hz, Huon, Hvom,
                    W, ru, rv, use_kernels: bool = True):
-    """Fused RHS (kernel 3, ops/rhs3d.py); output ring rows j = 0 and
-    Mj-1 are zero, dead data that bc_u/bc_v overwrite."""
+    """Fused RHS (kernel 3, ops/rhs3d.py) in its class, whose output ring
+    rows j = 0 and Mj-1 are zero, dead data that bc_u/bc_v overwrite;
+    outside it (NS-periodic grids, where those rows are live) the terms
+    above with roms_tpu's rows."""
     from ..ops import rhs3d as op
+    if not op.covers(cfg):
+        return rhs3d_terms(cfg, grid, u, v, Hz, Huon, Hvom, W, ru, rv)
     fn = op.rhs3d_momentum if use_kernels else op.rhs3d_momentum_plain
     return fn(cfg, grid, u, v, Hz, Huon, Hvom, W, ru, rv)
 

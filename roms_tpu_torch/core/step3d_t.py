@@ -1,7 +1,8 @@
 """Tracer corrector (port of roms_tpu/core/step3d_t.py; step3d_t.F):
 advection of the half-step tracer by the time-centred mass fluxes
-(kernel 2, corrector mode), then spline implicit vertical diffusion of
-all tracers (kernel 5), then the lateral BCs.
+(kernel 2, corrector mode, in its class; else core/advection.py), then
+spline implicit vertical diffusion of all tracers (kernel 5), then the
+lateral BCs.
 """
 
 from __future__ import annotations
@@ -19,7 +20,11 @@ def step3d_t(cfg: ModelConfig, grid: Grid, t_half, t_part,
         raise NotImplementedError(
             "non-spline vertical diffusion: ROADMAP Queue 1 item 7")
     from ..ops import tadv, vdiff
-    adv = tadv.corrector if use_kernels else tadv.corrector_plain
+    from .advection import tracer_corrector
+    if tadv.covers(cfg):
+        adv = tadv.corrector if use_kernels else tadv.corrector_plain
+    else:
+        adv = tracer_corrector
     diff = vdiff.spline_vdiff if use_kernels else vdiff.spline_vdiff_plain
     pre = adv(cfg, grid, t_half, t_part, Huon, Hvom, W, Hz)
     tn = diff(cfg, pre, Hz, Akt)

@@ -6,17 +6,22 @@ mixing, omega), the predictor stage (pre_step3d, pressure gradient,
 RHS, horizontal mixing), the fast barotropic loop, new depths, then the
 3D correctors.  The port carries the branches of the closed-basin
 DOUBLE_GYRE class, the EW-periodic UPWELLING channel with the analytic,
-GLS or MY2.5 vertical closure, and the BENCHMARK full physics (JM95,
-COARE bulk fluxes that take the ocean surface state, LMD-KPP with the
-solar source and nonlocal transport, MIX_GEO_TS, quadratic drag); every
-other hook raises NotImplementedError naming the ROADMAP Queue 1 item
-that brings it.
+GLS or MY2.5 vertical closure, the BENCHMARK full physics (JM95, COARE
+bulk fluxes that take the ocean surface state, LMD-KPP with the solar
+source and nonlocal transport, MIX_GEO_TS, quadratic drag), NS-periodic
+and doubly periodic grids, logarithmic drag, and LMD's bottom boundary
+layer (LMD_BKPP) and double diffusion (LMD_DDMIX) on the whole-array
+LMD route; every other hook raises NotImplementedError naming the
+ROADMAP Queue 1 item that brings it.
 
 Kernels: `Model(..., use_kernels=True)` (the default) sends the kernel
 entry points through their wrappers, which launch the CUDA kernels on
 CUDA tensors and take the plain PyTorch versions on CPU tensors.  Each
 kernel runs where its `covers(cfg)` holds, exactly where roms_tpu runs
-its Pallas kernel, and the step takes the plain code elsewhere.
+its Pallas kernel, and the step takes the core modules' own code
+elsewhere (on NS-periodic grids, for example, core/advection.py and
+core/rhs3d.py, which keep roms_tpu's ring rows where the tadv and rhs3d
+kernels zero them).
 `use_kernels=False` runs every kernel's plain version on the same route
 (the bulk forcing included) and is the only way to run them on the card.
 """
@@ -34,7 +39,7 @@ from ..grid.grid import Grid
 from ..ops import flux as flux_op, prep as prep_op
 from ..ops import prsgrd as prsgrd_op, stencil as st
 from ..ops.rho import rho_eos_plain
-from . import gls as gls_mod, hmix, my25 as my25_mod
+from . import gls as gls_mod, hmix, lmd as lmd_mod, my25 as my25_mod
 from . import omega as omega_mod, prsgrd, rhs3d, set_vbc
 from .pre_step3d import pre_step3d
 from .rho_eos import rho_eos
@@ -98,9 +103,6 @@ def default_vmix(cfg: ModelConfig):
 
 def _check_config(cfg: ModelConfig):
     m = cfg.mixing
-    if m.vmix == "lmd" and (m.bkpp or m.ddmix):
-        raise NotImplementedError(
-            "LMD_BKPP / LMD_DDMIX: ROADMAP Queue 1 item 5")
     if cfg.prsgrd != "djs":
         raise NotImplementedError(
             f"pressure gradient '{cfg.prsgrd}': ROADMAP Queue 1 item 7")
@@ -117,9 +119,6 @@ def _check_config(cfg: ModelConfig):
         raise NotImplementedError(
             "geopotential momentum mixing (MIX_GEO_UV): ROADMAP Queue 1 "
             "item 7")
-    if cfg.bc.ns_periodic:
-        raise NotImplementedError(
-            "NS-periodic grids: ROADMAP Queue 1 item 4")
     if cfg.omega_implicit:
         raise NotImplementedError("OMEGA_IMPLICIT: ROADMAP Queue 1 item 7")
     if cfg.wetdry:
@@ -128,10 +127,47 @@ def _check_config(cfg: ModelConfig):
 
 def kpp_route(cfg: ModelConfig) -> Optional[str]:
     """The LMD-KPP route of the step (roms_tpu/core/stepping.py:194-
-    200, 296-307): "prep" (EOS and KPP fused, kernel 15) in its class,
-    None outside it.  roms_tpu takes KPP alone (kernel 14, :308-318)
-    only beside a BBL closure, which the port does not run yet."""
-    return "prep" if prep_op.covers(cfg) else None
+    200, 296-341): "prep" (EOS and KPP fused, kernel 15) in its class;
+    "whole_array" for LMD with LMD_BKPP or LMD_DDMIX, roms_tpu's jnp
+    route (EOS through kernel 1, then core/lmd.py, whose spline solves
+    go through kernel 17); None without LMD.  roms_tpu takes KPP alone
+    (kernel 14, :308-318) only beside a BBL closure, which the port does
+    not run yet."""
+    if prep_op.covers(cfg):
+        return "prep"
+    return "whole_array" if cfg.mixing.vmix == "lmd" else None
+
+
+def whole_array_lmd(cfg: ModelConfig, grid: Grid, state, pden, bvf,
+                    forcing, bustr, bvstr, use_kernels: bool = True,
+                    ddmix: bool = True):
+    """LMD on the whole-array route (roms_tpu/core/stepping.py:323-341):
+    interior mixing, LMD_DDMIX's increments from alpha/beta at the
+    interior W interfaces (T and S averaged to z_w; left out with
+    ddmix=False, as roms_tpu's write-time diagnostics leave them out),
+    the surface boundary layer, then LMD_BKPP's bottom layer with the
+    surface layer's level as its guard.  Returns (Akv, Akt, ghats, hsbl,
+    hbbl); hbbl is None without LMD_BKPP."""
+    m = cfg.mixing
+    z_r, z_w, Hz, t = state.z_r, state.z_w, state.Hz, state.t
+    Akv, Akt = lmd_mod.lmd_vmix_interior(cfg, state.u, state.v, bvf, Hz,
+                                         use_kernels)
+    if m.ddmix and ddmix:
+        from .rho_eos import eos_alpha_beta
+        t_i = 0.5 * (t[:, 1:] + t[:, :-1])
+        aob = eos_alpha_beta(cfg, t_i, z_w[1:-1])[2]
+        Akt = lmd_mod.lmd_ddmix(cfg, t, aob, Akt)
+    Akv, Akt, ghats, hsbl = lmd_mod.lmd_skpp(
+        cfg, grid, t, state.u, state.v, pden, bvf, Hz, z_r, z_w, forcing,
+        Akv, Akt, use_kernels=use_kernels)
+    hbbl = None
+    if m.bkpp:
+        Akv, Akt, hbbl = lmd_mod.lmd_bkpp(
+            cfg, grid, t, state.u, state.v, pden, bvf, Hz, z_r, z_w,
+            forcing, bustr, bvstr, Akv, Akt,
+            ksbl_guard=lmd_mod.surface_ksbl(z_w, hsbl),
+            use_kernels=use_kernels)
+    return Akv, Akt, ghats, hsbl, hbbl
 
 
 class Model:
@@ -197,14 +233,16 @@ class Model:
             Huon, Hvom = set_massflux(grid, state.u, state.v, Hz)
             if cfg.bc.ew_periodic:
                 Huon, Hvom = st.periodic_x(Huon), st.periodic_x(Hvom)
+            if cfg.bc.ns_periodic:
+                Huon, Hvom = st.periodic_y(Huon), st.periodic_y(Hvom)
         route = self.kpp_route
         if route == "prep":
             # EOS and KPP share one kernel after the forcing; the bulk
             # fluxes need the top rho level first
             rho_surf = prep_op.surface_rho(cfg, state.t, z_r)
         else:
-            rho, _, rhoA, rhoS, bvf = rho_eos(cfg, state.t, z_r, Hz, z_w,
-                                              use_kernels=kern)
+            rho, pden, rhoA, rhoS, bvf = rho_eos(cfg, state.t, z_r, Hz,
+                                                 z_w, use_kernels=kern)
             rho_surf = rho[-1]
         forcing = self._forcing(state, rho_surf)
         bustr, bvstr = set_vbc.bottom_drag(cfg, grid, state.u, state.v,
@@ -218,6 +256,10 @@ class Model:
              _) = prep_op.prep_fused(cfg, grid, state.t, state.u, state.v,
                                      Hz, z_r, z_w, forcing,
                                      use_kernels=kern)
+            ghats_flux = Akt * ghats
+        elif route == "whole_array":
+            Akv, Akt, ghats, _, _ = whole_array_lmd(
+                cfg, grid, state, pden, bvf, forcing, bustr, bvstr, kern)
             ghats_flux = Akt * ghats
         else:
             Akv, Akt = self.vmix_fn(state, grid, z_w)
@@ -301,7 +343,8 @@ class Model:
         the bottom stress, and the vertical mixing coefficients (with the
         boundary-layer depth Hsbl under LMD-KPP), from the step's own
         prep code with each kernel on its route (the fused EOS + KPP of
-        kernel 15 on BENCHMARK's route, the EOS of kernel 1 elsewhere).
+        kernel 15 on BENCHMARK's route, the EOS of kernel 1 elsewhere),
+        the bottom boundary-layer depth hbbl too under LMD_BKPP.
         GLS/MY2.5 runs write their coefficients from state.mix."""
         cfg, grid = self.cfg, self.grid
         z_r, z_w, Hz = state.z_r, state.z_w, state.Hz
@@ -309,8 +352,9 @@ class Model:
         if route == "prep":
             rho_surf = prep_op.surface_rho(cfg, state.t, z_r)
         else:
-            rho_surf = rho_eos(cfg, state.t, z_r, Hz, z_w,
-                               use_kernels=self.use_kernels)[0][-1]
+            _, pden, _, _, bvf = eos = rho_eos(
+                cfg, state.t, z_r, Hz, z_w, use_kernels=self.use_kernels)
+            rho_surf = eos[0][-1]
         forcing = self._forcing(state, rho_surf)
         out = {"sustr": forcing.sustr, "svstr": forcing.svstr,
                "shflux": forcing.stflx[0], "swrad": forcing.srflx}
@@ -329,6 +373,13 @@ class Model:
                 cfg, grid, state.t, state.u, state.v, Hz, z_r, z_w,
                 forcing, use_kernels=self.use_kernels)
             out["hsbl"] = hsbl
+        elif route == "whole_array":
+            # roms_tpu's diagnose leaves LMD_DDMIX's increments out
+            Akv, Akt, _, out["hsbl"], hbbl = whole_array_lmd(
+                cfg, grid, state, pden, bvf, forcing, out["bustr"],
+                out["bvstr"], self.use_kernels, ddmix=False)
+            if hbbl is not None:
+                out["hbbl"] = hbbl
         elif cfg.mixing.vmix not in ("gls", "my25"):
             Akv, Akt = self.vmix_fn(state, grid, z_w)
         else:

@@ -1,8 +1,8 @@
 """Analytical applications (port of roms_tpu/functionals/idealized.py).
 
 The applications whose configurations use only the physics the port
-runs (constant vertical mixing, linear/quadratic/no drag, UP3/C4, djs,
-LF-AM3, closed or EW-periodic walls, no hooks):
+runs (constant, GLS or LMD vertical mixing, linear/quadratic/log/no
+drag, UP3/C4, djs, LF-AM3, closed or periodic walls, no hooks):
 
 BASIN       big flat closed basin, ramped wind (ana_grid.h:237-242,
             ana_initial.h:559-569, ana_smflux.h:141-152);
@@ -20,7 +20,17 @@ CANYON      stratified flow over a coastal canyon in a periodic channel
 WINDBASIN   wind-driven homogeneous rotating basin (ana_grid.h:376-381,
             ana_initial.h:850-859, ana_smflux.h:331-340);
 CHANNEL     geostrophically balanced Gaussian jet in a periodic f-plane
-            channel (ana_grid.h:255-260, ana_initial.h:218-230, 349-367).
+            channel (ana_grid.h:255-260, ana_initial.h:218-230, 349-367);
+LAKE_SIGNELL wind-driven closed lake with GLS mixing and logarithmic drag
+            (ana_grid.h:310-315, 1000-1003; ana_smflux.h:219-231);
+LMD_TEST    doubly periodic KPP mixed-layer deepening under a wind pulse,
+            LMD with the bottom boundary layer (ana_initial.h:719-730,
+            ana_smflux.h:236-250);
+MIXED_LAYER doubly periodic GLS surface mixed layer with logarithmic drag
+            (ana_initial.h:731-742, ana_smflux.h:189-197);
+LAB_CANYON  rotating-table polar annulus, NS-periodic and curvilinear,
+            with a shelf-break canyon and geopotential tracer mixing
+            (ana_grid.h:305-309, 483-514, 960-991).
 
 Each grid function takes `device="cuda"` (the default raises without a
 card) like every entry point of the port.
@@ -33,9 +43,9 @@ import math
 import numpy as np
 import torch
 
-from ..config import (LBC, BottomDragConfig, BoundaryConfig, EOSConfig,
-                      MixingConfig, ModelConfig, VerticalCoordConfig,
-                      UPSTREAM3, CENTERED4)
+from ..config import (CLOSED, LBC, PERIODIC, BottomDragConfig,
+                      BoundaryConfig, EOSConfig, MixingConfig, ModelConfig,
+                      VerticalCoordConfig, UPSTREAM3, CENTERED4)
 from ..core.state import Forcing, State, initial_state
 from ..device import torch_dtype
 from ..grid.depth import set_depth
@@ -412,3 +422,225 @@ def channel_initial(cfg: ModelConfig, grid: Grid) -> State:
 
 def channel_forcing_fn(cfg: ModelConfig, grid: Grid):
     return zero_forcing(cfg, grid)
+
+
+# ---------------------------------------------------------------------------
+# LAKE_SIGNELL — wind-driven closed lake with GLS mixing and log drag
+# (lake_signell.h; its SSW wave-current BBL and sediment are not in
+# roms_tpu's configuration either)
+# ---------------------------------------------------------------------------
+
+def lake_signell_config(Lm: int = 100, Mm: int = 20, N: int = 8,
+                        dt: float = 60.0, ndtfast: int = 20,
+                        dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=1.0, theta_b=1.0, Tcline=20.0),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=10.0, S0=30.0,
+                      Tcoef=1.7e-4, Scoef=7.6e-4),
+        mixing=MixingConfig(vmix="gls", akv_bak=5.0e-6,
+                            akt_bak=(5.0e-6, 5.0e-6)),
+        drag=BottomDragConfig(kind="log", Zob=0.005),
+        bc=BoundaryConfig(),                   # closed basin
+        rho0=1025.0, gamma2=1.0, dtype=dtype,
+    )
+
+
+def lake_signell_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    """2 m at the south shore deepening to 18 m at the north one."""
+    Mm = cfg.Mm
+
+    def h2d(xr, yr):
+        dy = 10.0e3 / Mm
+        j = yr / dy + 0.5                       # the j index
+        return 18.0 - 16.0 * (Mm - j) / (Mm - 1.0)
+
+    return _plane_grid(cfg, 50.0e3, 10.0e3, 18.0, f0=0.0, h2d=h2d,
+                       device=device)
+
+
+def lake_signell_initial(cfg: ModelConfig, grid: Grid) -> State:
+    Mj, Li = cfg.shape2d
+    T = torch.full((cfg.N, Mj, Li), 10.0, dtype=torch_dtype(cfg.dtype),
+                   device=grid.device)
+    S = torch.full_like(T, 30.0)
+    return initial_state(cfg, grid, t=torch.stack([T, S]))
+
+
+def lake_signell_forcing_fn(cfg: ModelConfig, grid: Grid):
+    """0.25 N/m2 along-lake wind, tanh ramp up at hour 15 over 10 h and
+    down at hour 50 (ana_smflux.h:219-231)."""
+    mxst, ramp_u, ramp_time, ramp_d = 0.25, 15.0, 10.0, 50.0
+
+    def sustr(time, zeros):
+        th = time / 3600.0
+        up = 0.5 * (math.tanh((th - ramp_u) / (ramp_time / 5.0)) + 1.0)
+        dn = 1.0 - 0.5 * (math.tanh((th - ramp_d) / (ramp_time / 5.0))
+                          + 1.0)
+        return (mxst / cfg.rho0 * min(up, dn)) + zeros
+
+    return _forcing(cfg, grid, sustr)
+
+
+# ---------------------------------------------------------------------------
+# LMD_TEST — doubly periodic KPP mixed-layer deepening under a wind pulse
+# ---------------------------------------------------------------------------
+
+def lmd_test_config(Lm: int = 10, Mm: int = 10, N: int = 50,
+                    dt: float = 300.0, ndtfast: int = 30,
+                    dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=3.0, theta_b=0.0, Tcline=50.0),
+        eos=EOSConfig(),                       # NONLIN_EOS
+        mixing=MixingConfig(vmix="lmd", bkpp=True),
+        drag=BottomDragConfig(kind="quadratic", rdrg2=3.0e-3),
+        bc=BoundaryConfig.uniform(LBC.same(PERIODIC)),
+        rho0=1025.0, gamma2=1.0, dtype=dtype,
+    )
+
+
+def lmd_test_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    return _plane_grid(cfg, 100.0e3, 100.0e3, 50.0, f0=1.09e-4,
+                       device=device)
+
+
+def lmd_test_initial(cfg: ModelConfig, grid: Grid) -> State:
+    """T = min(13, 7 + 0.2 (z + 50)), S = 35 (ana_initial.h:719-730)."""
+    T = torch.clamp(7.0 + 0.2 * (_z_r0(cfg, grid) + 50.0), max=13.0)
+    S = torch.full_like(T, 35.0)
+    return initial_state(cfg, grid, t=torch.stack([T, S]))
+
+
+def lmd_test_forcing_fn(cfg: ModelConfig, grid: Grid):
+    """16-hour wind pulse -0.6 sin(pi t/T) sin(2 pi t/T) N/m2
+    (ana_smflux.h:236-250)."""
+    def sustr(time, zeros):
+        amp = -0.6 * math.sin(math.pi * time / 57600.0) \
+            * math.sin(2.0 * math.pi * time / 57600.0) / cfg.rho0 \
+            if time <= 57600.0 else 0.0
+        return amp + zeros
+
+    return _forcing(cfg, grid, sustr)
+
+
+# ---------------------------------------------------------------------------
+# MIXED_LAYER — doubly periodic GLS surface mixed layer with log drag
+# ---------------------------------------------------------------------------
+
+def mixed_layer_config(Lm: int = 5, Mm: int = 4, N: int = 30,
+                       dt: float = 30.0, ndtfast: int = 10,
+                       dtype: str = "float64") -> ModelConfig:
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=0.001, theta_b=0.0,
+                                 Tcline=1e16),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=10.0, S0=35.0,
+                      Tcoef=1.7e-4, Scoef=0.0),
+        mixing=MixingConfig(vmix="gls"),
+        drag=BottomDragConfig(kind="log", Zob=0.02),
+        bc=BoundaryConfig.uniform(LBC.same(PERIODIC)),
+        rho0=1025.0, gamma2=1.0, uv_cor=False, dtype=dtype,
+    )
+
+
+def mixed_layer_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    return _plane_grid(cfg, 500.0, 400.0, 50.0, f0=0.0, device=device)
+
+
+def mixed_layer_initial(cfg: ModelConfig, grid: Grid) -> State:
+    """T = 10 + 3 (z + h)/h (ana_initial.h:731-742)."""
+    T = 10.0 + 3.0 * (_z_r0(cfg, grid) + grid.h[None]) / grid.h[None]
+    return _with_tracers(cfg, grid, T)
+
+
+def mixed_layer_forcing_fn(cfg: ModelConfig, grid: Grid):
+    """Constant 1e-4 m2/s2 kinematic wind stress (ana_smflux.h:189)."""
+    return _forcing(cfg, grid, lambda time, zeros: zeros + 1.0e-4)
+
+
+# ---------------------------------------------------------------------------
+# LAB_CANYON (lab_canyon.h): rotating-table polar annulus with a
+# shelf-break canyon; curvilinear metrics with variable azimuthal spacing
+# ---------------------------------------------------------------------------
+
+def lab_canyon_config(Lm: int = 48, Mm: int = 72, N: int = 10,
+                      dt: float = 0.05, ndtfast: int = 10,
+                      dtype: str = "float64") -> ModelConfig:
+    lbc = LBC(west=CLOSED, east=CLOSED, south=PERIODIC, north=PERIODIC)
+    return ModelConfig(
+        Lm=Lm, Mm=Mm, NT=2, NAT=2, dt=dt, ndtfast=ndtfast,
+        vert=VerticalCoordConfig(N=N, Vtransform=1, Vstretching=1,
+                                 theta_s=0.0, theta_b=0.0,
+                                 Tcline=1e16),
+        eos=EOSConfig(linear=True, R0=1027.0, T0=14.0, S0=35.0,
+                      Tcoef=1.7e-4, Scoef=0.0),
+        mixing=MixingConfig(visc2=1.0e-5, tnu2=(1.0e-6, 1.0e-6),
+                            mix_geo_ts=True),
+        drag=BottomDragConfig(kind="linear", rdrg=3.0e-4),
+        bc=BoundaryConfig.uniform(lbc),
+        rho0=1025.0, gamma2=1.0, curvgrid=True, dtype=dtype,
+    )
+
+
+def lab_canyon_grid(cfg: ModelConfig, device="cuda") -> Grid:
+    """Polar annulus r in [0.35, 0.90] m with variable azimuthal spacing
+    and the canyon notch in the shelf break (ana_grid.h:483-514,
+    960-991); the curvature terms from the metrics (dndx = dmde = None)."""
+    Lm, Mm = cfg.Lm, cfg.Mm
+    Mj, Li = cfg.shape2d
+    Xsize = 0.55
+    dx = Xsize / Lm
+    dth = 0.01
+    twopi = 2.0 * np.pi
+    cffF = (4.0 * np.pi / (dth * Mm)) - 1.0
+
+    jj = np.arange(Mj, dtype=np.float64)[:, None]
+    ii = np.arange(Li, dtype=np.float64)[None, :]
+    # rho points (i-1+0.5, j-1+0.5) in the reference's 1-based layout
+    r = 0.35 + dx * (ii - 0.5)
+    theta = -np.pi + 0.5 * dth * (
+        (cffF + 1.0) * (jj - 0.5)
+        + (cffF - 1.0) * (Mm / twopi) * np.sin(twopi * (jj - 0.5) / Mm))
+    xr = r * np.cos(theta) + 0.0 * jj
+    yr = r * np.sin(theta) + 0.0 * ii
+    # metrics: pm = 1/dr, pn = 1/(r dtheta_j)
+    dth_j = 0.5 * dth * ((cffF + 1.0)
+                         + (cffF - 1.0) * np.cos(twopi * (jj - 0.5) / Mm))
+    pm = np.broadcast_to(1.0 / dx, (Mj, Li)).copy()
+    pn = 1.0 / (r * dth_j) + 0.0 * jj
+    angler = np.broadcast_to(theta, (Mj, Li)).copy()
+
+    # bathymetry: shelf 0.025 m, deep 0.125 m, the canyon notch where
+    # |theta| < 2/11
+    val1 = 0.55 - 0.15 * np.cos(np.pi * theta * 0.55 / 0.2) ** 2
+    val2 = 0.15 + 0.15 * np.cos(np.pi * theta * 0.55 / 0.2) ** 2
+    r2 = np.broadcast_to(r, (Mj, Li))
+    th2 = np.broadcast_to(theta, (Mj, Li))
+    v1 = np.broadcast_to(val1, (Mj, Li))
+    v2 = np.broadcast_to(val2, (Mj, Li))
+    h_out = np.where(r2 <= 0.55, 0.025,
+                     np.where(r2 >= 0.7, 0.125,
+                              0.125 - 0.1 * np.cos(
+                                  0.5 * np.pi * (r2 - 0.55) / 0.15) ** 2))
+    h_in = np.where(r2 <= v1, 0.025,
+                    np.where(r2 >= 0.7, 0.125,
+                             0.125 - 0.1 * np.cos(
+                                 0.5 * np.pi * (r2 - v1)
+                                 / np.maximum(v2, 1e-9)) ** 2))
+    h = np.where(np.abs(th2) >= 0.181818181818, h_out, h_in)
+
+    f0 = 4.0 * np.pi / 25.0
+    return build_grid(cfg, h=h, pm=pm,
+                      pn=np.broadcast_to(pn, (Mj, Li)).copy(),
+                      f=np.full((Mj, Li), f0), xr=xr, yr=yr,
+                      angler=angler, dndx=None, dmde=None, device=device)
+
+
+def lab_canyon_initial(cfg: ModelConfig, grid: Grid) -> State:
+    T = torch.full((cfg.N,) + cfg.shape2d, 14.0,
+                   dtype=torch_dtype(cfg.dtype), device=grid.device)
+    return _with_tracers(cfg, grid, T)

@@ -28,7 +28,7 @@ from ._ncutil import tracer_names
 from .varinfo import REGISTRY, dims_for, varinfo_for
 
 _DIAGNOSED = ("sustr", "svstr", "shflux", "ssflux", "swrad", "bustr",
-              "bvstr", "hsbl", "lwrad", "latent", "sensible",
+              "bvstr", "hsbl", "hbbl", "lwrad", "latent", "sensible",
               "evaporation", "rain", "EminusP", "Pair", "Tair",
               "Uwind", "Vwind")
 
@@ -66,6 +66,8 @@ def supported_keys(cfg: ModelConfig, model) -> set:
             keys.add("AKs")
         if cfg.mixing.vmix == "lmd":
             keys.add("hsbl")
+            if cfg.mixing.bkpp:
+                keys.add("hbbl")
     return keys
 
 

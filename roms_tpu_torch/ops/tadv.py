@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..config import CENTERED4, UPSTREAM3
-from . import _lib, stencil as st
+from . import _lib
 
 
 # the tile (rows, lanes): at most THREADS points, one a thread of the
@@ -63,38 +63,20 @@ def _zero_ring_rows(x):
     return x
 
 
-def _fluxes(cfg, grid, q, Huon, Hvom, Hz, W):
-    from ..core.advection import hadv_flux, vadv_flux
-    FX, FE = hadv_flux(cfg, grid, q, Huon, Hvom, UPSTREAM3)
-    FC = vadv_flux(cfg, q, W, Hz, CENTERED4)
-    return st.dx_p(FX) + st.dy_p(FE), FC[1:] - FC[:-1]
-
-
 def predictor_plain(cfg, grid, t, t_prev, Huon, Hvom, W, Hz,
                     cff, cff1, cff2):
     """t_half for all tracers (pre_step3d.F:260-700), before bc_rho."""
-    pmn = grid.pm * grid.pn
-    out = []
-    for itrc in range(cfg.NT):
-        hdiv, vdiv = _fluxes(cfg, grid, t[itrc], Huon, Hvom, Hz, W)
-        th = Hz * (cff1 * t[itrc] + cff2 * t_prev[itrc]) - \
-            cff * pmn * hdiv
-        DC = 1.0 / (Hz - cff * pmn * (st.dx_p(Huon) + st.dy_p(Hvom)
-                                      + (W[1:] - W[:-1])))
-        out.append(DC * (th - cff * pmn * vdiv))
-    return _zero_ring_rows(torch.stack(out))
+    from ..core.advection import tracer_predictor
+    return _zero_ring_rows(tracer_predictor(cfg, grid, t, t_prev, Huon,
+                                            Hvom, W, Hz, cff, cff1, cff2))
 
 
 def corrector_plain(cfg, grid, t_half, t_part, Huon, Hvom, W, Hz):
     """Pre-diffusion Hz-weighted tn for all tracers (step3d_t.F:
     343-1205): t_part - dt*pmn*(hdiv + vdiv), added in that order."""
-    pmn = grid.pm * grid.pn
-    out = []
-    for itrc in range(cfg.NT):
-        hdiv, vdiv = _fluxes(cfg, grid, t_half[itrc], Huon, Hvom, Hz, W)
-        tn = t_part[itrc] + -cfg.dt * pmn * hdiv
-        out.append(tn + -cfg.dt * pmn * vdiv)
-    return _zero_ring_rows(torch.stack(out))
+    from ..core.advection import tracer_corrector
+    return _zero_ring_rows(tracer_corrector(cfg, grid, t_half, t_part,
+                                            Huon, Hvom, W, Hz))
 
 
 def predictor(cfg, grid, t, t_prev, Huon, Hvom, W, Hz, cff, cff1, cff2):

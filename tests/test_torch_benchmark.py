@@ -46,7 +46,8 @@ from roms_tpu_torch.ops import kpp as tkpp, prep as tprep
 
 from roms_tpu_torch import convert
 
-from torch_port_util import cfg_dict, port, rel_err, t2n
+from torch_port_util import cfg_dict, port, reference_run, rel_err, t2n
+from torch_port_util import xla_fast_compiles  # noqa: F401
 
 TOL = 1e-12
 FIELDS = ("zeta", "ubar", "vbar", "u", "v", "t")
@@ -509,7 +510,8 @@ def runs(request):
         if full:
             assert pallas_prep.use_pallas_prep(cfg)
         fn = bm.make_bulk_forcing_fn if full else bm.make_forcing_fn
-        ref = stepping.Model(cfg, grid, fn(cfg, grid)).run(s0, 5)
+        ref = reference_run(stepping.Model(cfg, grid, fn(cfg, grid)), s0,
+                            5)
     finally:
         mp.undo()
     tcfg, tgrid, ts0 = port(cfg, grid, s0)

@@ -11,8 +11,10 @@ roms_tpu's `python -m roms_tpu DECK` on the CPU (float64):
 (b) restart: 3 steps, read_restart, 3 more equal 6 steps bit for bit;
     the port reads the RST file roms_tpu's driver wrote in (a), and
     roms_tpu reads the port's;
-(c) the refusals: apps the port cannot run (LAB_CANYON must not run as
-    CANYON, CHANNEL_NECK not as CHANNEL), --mesh, and a deck naming an
+(c) an LMD_TEST deck (doubly periodic, LMD_BKPP) with HIS and NINFO
+    through both drivers, HIS within the same bound, NINFO within 1e-8;
+(d) the refusals: apps the port cannot run (CHANNEL_NECK must not run
+    as CHANNEL), --mesh, and a deck naming an
     existing GRDNAME file raise NotImplementedError naming their
     ROADMAP Queue 1 item; strict keyword checking raises RomsError on a
     keyword roms_tpu does not know either; --device cuda raises without
@@ -33,6 +35,8 @@ from roms_tpu_torch import __main__ as tdriver
 from roms_tpu_torch.core.stepping import Model
 from roms_tpu_torch.functionals import upwelling as tup
 from roms_tpu_torch.io.rst_netcdf import RestartWriter, read_restart
+
+from torch_port_util import xla_fast_compiles  # noqa: F401
 
 LBC = "\n".join(f"   LBC({v}) == Per Clo Per Clo"
                 for v in ("isFsur", "isUbar", "isVbar", "isUvel", "isVvel",
@@ -249,6 +253,95 @@ def _deck_model(deck):
                  vmix_fn=tup.make_vmix_fn(cfg)), cfg, grid
 
 
+LMD_DECK = """
+! LMD_TEST in the reference roms.in format: a doubly periodic box with
+! LMD-KPP and its bottom boundary layer (lmd_test.h)
+       TITLE = Wind-Driven Mixed Layer Deepening, LMD-KPP
+    MyAppCPP = LMD_TEST
+          Lm == 10
+          Mm == 10
+           N == 50
+""" + "\n".join(f"   LBC({v}) == Per Per Per Per"
+                for v in ("isFsur", "isUbar", "isVbar", "isUvel", "isVvel",
+                          "isTvar", "isMtke")) + """
+      NTIMES == 4
+          DT == 300.0d0
+     NDTFAST == 30
+  Vtransform == 1
+ Vstretching == 1
+     THETA_S == 3.0d0
+     THETA_B == 0.0d0
+      TCLINE == 50.0d0
+        RHO0 == 1025.0d0
+      GAMMA2 == 1.0d0
+        TNU2 == 2*0.0d0
+       VISC2 == 0.0d0
+       NINFO == 1
+        NHIS == 2
+     HISNAME == roms_his.nc
+     GRDNAME == roms_grd_absent.nc
+Hout(idFsur) == T
+Hout(idUvel) == T
+Hout(idVvel) == T
+Hout(idTvar) == T T
+Hout(idVvis) == T
+Hout(idTdif) == T
+Hout(idSdif) == T
+Hout(idHsbl) == T
+Hout(idHbbl) == T
+Hout(idUsms) == T
+Hout(idUbms) == T
+"""
+
+
+def test_lmd_test_deck_matches_roms_tpu(tmp_path):
+    """An LMD_TEST deck (doubly periodic, LMD-KPP with LMD_BKPP, HIS with
+    the mixing coefficients and both boundary-layer depths, NINFO every
+    step) through both drivers at 8 x 6 x 12, float64: the HIS file's
+    variables, dimensions and records within the trajectory bound, and
+    the NINFO table within 1e-8 relative.  LAB_CANYON runs as itself, not
+    as CANYON."""
+    from roms_tpu_torch.functionals import idealized as tia
+    assert tdriver._app_module("LAB_CANYON")[0] is tia.lab_canyon_config
+    deck = tmp_path / "roms_lmd_test.in"
+    deck.write_text(LMD_DECK)
+    size = ["--dtype", "float64", "--lm", "8", "--mm", "6", "--n", "12"]
+    outs = {}
+    for name, main in (("jax", jdriver.main), ("torch", tdriver.main)):
+        argv = [str(deck), "--outdir", str(tmp_path / name)] + size
+        if name == "torch":
+            argv += ["--device", "cpu"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(argv) == 0
+        outs[name] = buf.getvalue()
+    a = netcdf_file(tmp_path / "jax" / "roms_his.nc", "r", mmap=False)
+    b = netcdf_file(tmp_path / "torch" / "roms_his.nc", "r", mmap=False)
+    assert sorted(a.variables) == sorted(b.variables)
+    assert {"Hsbl", "Hbbl", "AKv", "AKt", "AKs", "bustr"} <= set(
+        b.variables)
+    assert a.dimensions == b.dimensions
+    assert b.variables["ocean_time"].shape[0] == 2
+    for name, va in a.variables.items():
+        vb = b.variables[name]
+        assert va.dimensions == vb.dimensions and va.shape == vb.shape, name
+        x = np.asarray(va.data, np.float64)
+        y = np.asarray(vb.data, np.float64)
+        assert np.isfinite(y).all(), name
+        tol = 1e-10 * np.abs(x).max(initial=0.0) + 5e-14
+        if va.data.dtype == np.float32:
+            tol = tol + np.spacing(np.abs(x).astype(np.float32))
+        assert np.all(np.abs(x - y) <= tol), \
+            (name, np.abs(x - y).max(initial=0.0))
+    a.close()
+    b.close()
+    ja, ta = _ninfo(outs["jax"]), _ninfo(outs["torch"])
+    assert ja.shape == ta.shape == (4, 8), (ja.shape, ta.shape)
+    assert list(ta[:, 0]) == [1, 2, 3, 4]
+    assert np.all(np.abs(ta - ja) <= 1e-8 * np.abs(ja)), (ja, ta)
+    assert "unsupported" not in outs["torch"]
+
+
 def test_restart_is_bitwise(decks, tmp_path):
     """3 steps, RST, read_restart, 3 more == 6 steps bit for bit, with
     the GLS turbulence fields riding along; the port continues from the
@@ -313,8 +406,8 @@ def test_restart_is_bitwise(decks, tmp_path):
             assert np.array_equal(y, x.numpy()), name
 
 
-REFUSED = {"LAB_CANYON": "item 4", "CHANNEL_NECK": "item 7",
-           "KELVIN": "item 6"}
+REFUSED = {"CHANNEL_NECK": "item 7", "KELVIN": "item 6",
+           "BIO_TOY": "item 8"}
 
 
 def test_driver_refusals(tmp_path, monkeypatch):

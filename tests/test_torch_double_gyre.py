@@ -22,7 +22,7 @@ from roms_tpu_torch.config import LBC, RADIATION, BoundaryConfig
 from roms_tpu_torch.core import stepping as tstepping
 from roms_tpu_torch.functionals import idealized as tia
 
-from torch_port_util import port, t2n
+from torch_port_util import port, reference_run, t2n
 
 FIELDS = ("zeta", "ubar", "vbar", "u", "v", "t")
 
@@ -33,8 +33,8 @@ def runs():
     cfg = ia.double_gyre_config(Lm=16, Mm=32, N=6, dtype="float64")
     grid = ia.double_gyre_grid(cfg)
     s0 = ia.double_gyre_initial(cfg, grid)
-    ref = stepping.Model(cfg, grid,
-                         ia.double_gyre_forcing_fn(cfg, grid)).run(s0, 4)
+    ref = reference_run(stepping.Model(
+        cfg, grid, ia.double_gyre_forcing_fn(cfg, grid)), s0, 4)
     tcfg, tgrid, ts0 = port(cfg, grid, s0)
     model = tstepping.Model(tcfg, tgrid,
                             tia.double_gyre_forcing_fn(tcfg, tgrid))
@@ -87,10 +87,9 @@ def test_port_imports_neither_jax_nor_roms_tpu():
 
 
 UNPORTED = sorted(tstepping._LATER) + [
-    "vmix=lmd", "vmix=gls", "vmix=my25", "prsgrd=fv", "step2d=fb",
-    "step_diag", "step_diag_uv", "ddmix=1", "mix_iso_ts=1", "mix_geo_uv=1",
-    "smagorinsky=1", "omega_implicit=1", "wetdry=1", "bc=ns_periodic",
-    "bc=radiation"]
+    "vmix=gls", "vmix=my25", "prsgrd=fv", "step2d=fb",
+    "step_diag", "step_diag_uv", "mix_iso_ts=1", "mix_geo_uv=1",
+    "smagorinsky=1", "omega_implicit=1", "wetdry=1", "bc=radiation"]
 # refusals that name the ROADMAP item that ports them
 ROADMAP_ITEM = {"obc_fn": "ROADMAP Queue 1 item 6",
                 "clm_fn": "ROADMAP Queue 1 item 6",
@@ -105,8 +104,6 @@ ROADMAP_ITEM = {"obc_fn": "ROADMAP Queue 1 item 6",
                 "flux_corr_fn": "ROADMAP Queue 1 item 8",
                 "step_diag": "ROADMAP Queue 1 item 10",
                 "step_diag_uv": "ROADMAP Queue 1 item 10",
-                "vmix=lmd": "LMD_BKPP.*ROADMAP Queue 1 item 5",
-                "ddmix=1": "ROADMAP Queue 1 item 5",
                 "prsgrd=fv": "ROADMAP Queue 1 item 7",
                 "step2d=fb": "ROADMAP Queue 1 item 7",
                 "mix_iso_ts=1": "ROADMAP Queue 1 item 7",
@@ -114,7 +111,6 @@ ROADMAP_ITEM = {"obc_fn": "ROADMAP Queue 1 item 6",
                 "smagorinsky=1": "ROADMAP Queue 1 item 7",
                 "bc=radiation": "open boundary 'radiation' .*ROADMAP Queue 1 "
                                 "item 6",
-                "bc=ns_periodic": "NS-periodic grids: ROADMAP Queue 1 item 4",
                 "omega_implicit=1": "OMEGA_IMPLICIT: ROADMAP Queue 1 item 7",
                 "wetdry=1": "WET_DRY: ROADMAP Queue 1 item 7"}
 
@@ -144,15 +140,8 @@ def test_unported_hooks_raise(what):
                     bc=dataclasses.replace(cfg.bc, tke=LBC.same(RADIATION)))
                 tstepping.Model(cfg, grid, forcing_fn).step(
                     tia.double_gyre_initial(cfg, grid))
-            elif field == "vmix":
-                # LMD-KPP runs since the BENCHMARK slice; its bottom
-                # boundary layer (LMD_BKPP) is still to come
-                cfg = cfg.replace(mixing=dataclasses.replace(
-                    cfg.mixing, vmix=val, bkpp=val == "lmd"))
             elif field == "bc":
-                lbc = LBC.ns_periodic() if val == "ns_periodic" \
-                    else LBC.same(val)
-                cfg = cfg.replace(bc=BoundaryConfig.uniform(lbc))
+                cfg = cfg.replace(bc=BoundaryConfig.uniform(LBC.same(val)))
                 tstepping.Model(cfg, grid, forcing_fn).step(
                     tia.double_gyre_initial(cfg, grid))
             elif field in ("omega_implicit", "wetdry"):

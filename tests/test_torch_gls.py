@@ -39,7 +39,7 @@ from roms_tpu_torch.core import stepping as tstepping
 from roms_tpu_torch.functionals import upwelling as tup
 from roms_tpu_torch.ops import _lib, tridiag as ttridiag
 
-from torch_port_util import port, rel_err, t2n
+from torch_port_util import port, reference_run, rel_err, t2n
 
 TOL = 1e-12
 MIX_FIELDS = ("tke", "gls", "Akv", "Akt", "Akk", "Akp", "Lscale")
@@ -284,8 +284,8 @@ def _trajectory(kind):
         u=s0.u + jnp.asarray(0.01 * rng.standard_normal(s0.u.shape))
         * grid.umask,
         t=s0.t + jnp.asarray(0.1 * rng.standard_normal(s0.t.shape)))
-    ref = stepping.Model(cfg, grid, up.make_forcing_fn(cfg, grid)).run(s0,
-                                                                       3)
+    ref = reference_run(stepping.Model(cfg, grid,
+                                       up.make_forcing_fn(cfg, grid)), s0, 3)
     tcfg, tgrid, ts0 = port(cfg, grid, s0)
     before = dict(_lib.launches)
     solve, solves = ttridiag.tridiag_solve, []

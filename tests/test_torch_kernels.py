@@ -32,6 +32,7 @@ from roms_tpu_torch.ops import rho as trho, rhs3d as trhs3d, tadv as ttadv
 from roms_tpu_torch.ops import uv as tuv, vdiff as tvdiff
 
 from torch_port_util import port, rel_err
+from torch_port_util import xla_fast_compiles  # noqa: F401
 
 TOL = 1e-12
 IICS = (0, 1, 5)
@@ -269,24 +270,25 @@ def _port_fired(cfg, bulk=False, engine="resident"):
         fired.add({step2d.fast_loop_res: "fast_loop_pallas_res",
                    step2d.fast_loop_blocked: "fast_loop_pallas"}[fast])
     route = kpp_route(tcfg)
-    if route is not None:
-        fired.add(route)
-    if route != "prep" and rho.covers(tcfg):
+    if route == "prep":
+        fired.add("prep")
+    elif rho.covers(tcfg):
         fired.add("rho")
     if bulk and tbulk.covers(tcfg):
         fired.add("bulk")
-    if tcfg.mixing.vmix in ("gls", "my25") and _closure_reaches_kernel(
-            tcfg):
+    if (tcfg.mixing.vmix in ("gls", "my25") or route == "whole_array") \
+            and _solve_reaches_kernel(tcfg, route):
         fired.add("tridiag")
     return fired
 
 
-def _closure_reaches_kernel(tcfg):
-    """Whether the closures' call-site gate (core/gls.py closure_solve)
-    hands a system of the N-1 interior interfaces to kernel 17's
-    wrapper, observed on meta tensors with the wrapper replaced by a
+def _solve_reaches_kernel(tcfg, route):
+    """Whether the solves of the N-1 interior interfaces reach kernel
+    17's wrapper through their call-site gate (core/gls.py
+    closure_solve; on the whole-array LMD route through core/lmd.py
+    spline_ddz), observed on meta tensors with the wrapper replaced by a
     recorder."""
-    from roms_tpu_torch.core import gls as tgls
+    from roms_tpu_torch.core import gls as tgls, lmd as tlmd
     from roms_tpu_torch.ops import tridiag
     seen = []
     solve = tridiag.tridiag_solve
@@ -297,7 +299,11 @@ def _closure_reaches_kernel(tcfg):
     tridiag.tridiag_solve = spy
     try:
         x = torch.empty((tcfg.N - 1,) + tcfg.shape2d, device="meta")
-        tgls.closure_solve(x, x, x, x)
+        if route == "whole_array":
+            tlmd.spline_ddz(x, torch.empty((tcfg.N,) + tcfg.shape2d,
+                                           device="meta"))
+        else:
+            tgls.closure_solve(x, x, x, x)
     finally:
         tridiag.tridiag_solve = solve
     return bool(seen)
@@ -371,17 +377,19 @@ APP_KERNELS = {
                "fast_loop_pallas_res", "uv", "vdiff", "hmix"},
     "channel": {"flux", "rho", "tadv", "prsgrd", "rhs3d", "uvmix",
                 "fast_loop_pallas_res", "uv", "vdiff"},
+    "lake_signell": {"rho", "tadv", "rhs3d", "uv", "vdiff", "tridiag"},
+    "lmd_test": {"rho", "vdiff", "tridiag"},
+    "mixed_layer": {"rho", "vdiff", "tridiag"},
+    "lab_canyon": {"rho", "vdiff"},
 }
 
 
 BENCHMARK3_FULL = {"flux", "prep", "tadv", "prsgrd", "rhs3d", "uvmix",
                    "fast_loop_pallas_res", "uv", "vdiff", "hmix", "bulk"}
-# roms_tpu reaches the tridiagonal kernel on these through routes the
-# port refuses (OMEGA_IMPLICIT's upwind solves, the jnp LMD route of
-# LMD_BKPP/LMD_DDMIX): the port's Model raises there, and has no such
-# solve site
-REFUSED_TRIDIAG_ROUTES = {"omega_implicit", "benchmark3_bkpp",
-                          "benchmark3_ddmix"}
+# roms_tpu reaches the tridiagonal kernel on this through a route the
+# port refuses (OMEGA_IMPLICIT's upwind solves): the port's Model raises
+# there, and has no such solve site
+REFUSED_TRIDIAG_ROUTES = {"omega_implicit"}
 
 
 @pytest.mark.parametrize("name", list(_gate_configs()))
@@ -390,9 +398,11 @@ def test_port_gates_match_roms_tpu(monkeypatch, name):
     kernels roms_tpu's float32 step runs on one TPU: the closed basin,
     the channel at the published and the full width (all nine), with
     the GLS and MY2.5 closures (ten, the tridiagonal solve added),
-    BENCHMARK3 with the full physics (eleven) and its light variant
-    (ten), configurations just outside each class, and the six
-    analytical apps at their published sizes (APP_KERNELS)."""
+    BENCHMARK3 with the full physics (eleven), its light variant (ten)
+    and with LMD_BKPP or LMD_DDMIX (twelve: the EOS and the spline solves
+    of the whole-array LMD route), configurations just outside each
+    class, and the ten analytical apps at their published sizes
+    (APP_KERNELS)."""
     for var in [v for v in os.environ if v.startswith("ROMS_TPU_")]:
         monkeypatch.delenv(var)
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
@@ -425,6 +435,10 @@ def test_port_gates_match_roms_tpu(monkeypatch, name):
         assert fired == BENCHMARK3_FULL
     if name == "benchmark3_light":
         assert fired == BENCHMARK3_FULL - {"prep", "bulk"} | {"rho"}
+    if name in ("benchmark3_bkpp", "benchmark3_ddmix"):
+        # the whole-array LMD route: kernel 1's EOS in place of prep, and
+        # kernel 17 for the spline shear
+        assert fired == BENCHMARK3_FULL - {"prep"} | {"rho", "tridiag"}
 
 
 @pytest.mark.parametrize("name", ["upwelling", "upwelling_full_width",

@@ -1,14 +1,17 @@
 """The plain PyTorch modules of roms_tpu_torch, one function at a time,
 against roms_tpu's jnp functions: float64, numpy-seeded inputs, whole
-arrays at 1e-12 relative.  Each runs on the closed DOUBLE_GYRE basin and
-on the same grid made EW-periodic (the ring branches the next slice's
-channel needs), with biharmonic mixing switched on so the t3dmix4/
-uv3dmix4 paths are exercised."""
+arrays at 1e-12 relative.  Each runs on the closed DOUBLE_GYRE basin, on
+the same grid made EW-periodic (the channel's ring branches) and made
+NS-periodic with closed east and west walls (the NS ring branches of the
+boundaries, fast loop, omega, RHS terms, advection, pressure gradient
+and mixing, which LAB_CANYON's step reaches), with biharmonic mixing
+switched on so the t3dmix4/uv3dmix4 paths are exercised."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from roms_tpu.config import LBC, BoundaryConfig
@@ -35,6 +38,7 @@ from roms_tpu_torch.grid import depth as t_depth
 from roms_tpu_torch.ops.tridiag import spline_flux_solve as t_spline
 
 from torch_port_util import port, rel_err
+from torch_port_util import xla_fast_compiles  # noqa: F401
 
 TOL = 1e-12
 
@@ -51,7 +55,8 @@ def _close(ref, got):
             assert rel_err(r, g) < TOL
 
 
-@pytest.fixture(scope="module", params=["closed", "ew_periodic"])
+@pytest.fixture(scope="module", params=["closed", "ew_periodic",
+                                        "ns_periodic"])
 def mc(request):
     torch.set_num_threads(1)
     cfg = ia.double_gyre_config(Lm=12, Mm=16, N=6, ndtfast=6,
@@ -61,6 +66,8 @@ def mc(request):
         tnu4=(2.0e9, 1.0e9), akv_bak=1.0e-5, akt_bak=(1.0e-6, 1.0e-6)))
     if request.param == "ew_periodic":
         cfg = cfg.replace(bc=BoundaryConfig.uniform(LBC.ew_periodic()))
+    if request.param == "ns_periodic":
+        cfg = cfg.replace(bc=BoundaryConfig.uniform(LBC.ns_periodic()))
     grid = ia.double_gyre_grid(cfg)
     rng = np.random.default_rng(99)
     N, (Mj, Li) = cfg.N, cfg.shape2d
@@ -207,13 +214,22 @@ def test_spline_flux_solve(mc):
                     tcfg.dt))
 
 
-@pytest.mark.parametrize("iic", [0, 3])
-def test_fast_loop(mc, iic):
-    cfg, grid, tcfg, tgrid, a, t = mc
+@pytest.fixture(scope="module")
+def fast_loops(mc):
+    """roms_tpu's fast loop for the fixture's grid, compiled once for
+    every iic (a traced argument), beside the weights."""
+    cfg = mc[0]
     nfast, w1, w2 = power_law_weights(cfg.ndtfast)
+    return jax.jit(make_fast_loop(cfg, nfast, w1, w2)), (nfast, w1, w2)
+
+
+@pytest.mark.parametrize("iic", [0, 3])
+def test_fast_loop(mc, fast_loops, iic):
+    cfg, grid, tcfg, tgrid, a, t = mc
+    loop, (nfast, w1, w2) = fast_loops
     f2, tf2 = a["f2"], t["f2"]
     rhoS, rhoA = 1e-2 * f2[5], 1e-2 * f2[6]
-    ref = make_fast_loop(cfg, nfast, w1, w2)(
+    ref = loop(
         grid, a["zeta"], a["ubar"], a["vbar"], f2[0], f2[1], rhoS, rhoA,
         f2[2], f2[3], f2[4], f2[7], jnp.asarray(iic, jnp.int32))
     got = t_make_fast_loop(tcfg, nfast, w1, w2)(

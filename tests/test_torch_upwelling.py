@@ -18,6 +18,7 @@ errors at the periodic seam cannot cancel.
 The CUDA kernels themselves need a card: tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,7 +40,8 @@ from roms_tpu_torch.ops import flux as tflux, prsgrd as tprsgrd
 from roms_tpu_torch.ops import rhs3d as trhs3d, step2d as tstep2d
 from roms_tpu_torch.ops import tadv as ttadv, uv as tuv, uvmix as tuvmix
 
-from torch_port_util import port, rel_err, t2n
+from torch_port_util import port, reference_run, rel_err, t2n
+from torch_port_util import xla_fast_compiles  # noqa: F401
 
 TOL = 1e-12
 FIELDS = ("zeta", "ubar", "vbar", "u", "v", "t")
@@ -141,31 +143,43 @@ def test_uv3dmix2_s_plain(uc):
         assert rel_err(p, g, np.s_[..., 2:-1, 1:-1]) < TOL
 
 
-@pytest.mark.parametrize("iic", [0, 5])
-def test_fast_loop_res_plain(uc, iic):
-    """The 16 carry fields after nfast substeps against roms_tpu's jnp
-    substep loop (lax.scan of its predictor and corrector)."""
+@pytest.fixture(scope="module")
+def jnp_loop(uc):
+    """roms_tpu's jnp substep loop (lax.scan of its predictor and
+    corrector) for a short loop at the published barotropic step
+    dt/ndtfast = 10 s, compiled once for every iic (a traced argument),
+    with its inputs."""
     cfg, grid, tcfg, tgrid, a = uc
-    # a short loop at the published barotropic step dt/ndtfast = 10 s
     cfg = cfg.replace(dt=60.0, ndtfast=6)
-    tcfg = tcfg.replace(dt=60.0, ndtfast=6)
     nfast, w1, w2 = power_law_weights(cfg.ndtfast)
     f2 = a["f2"]
     dyn = [a["zeta"], a["ubar"], a["vbar"], f2[0], f2[1], a["rhoS"],
            a["rhoA"], f2[2], f2[3], f2[4], f2[5]]
     pred, corr, _, init = make_substep_kernels(
         cfg, nfast, jnp.asarray(w1), jnp.asarray(w2))
-    iicj = jnp.asarray(iic, jnp.int32)
 
-    def body(c, iif):
-        zp, up_, vp, rz, ru, rv, rufc, rvfc, avg = pred(
-            grid, iif, c, dyn[5], dyn[6], iicj, dyn[9], dyn[10], None)
-        c = corr(grid, iif, c._replace(avg=avg), zp, up_, vp, rz, ru, rv,
-                 rufc, rvfc, dyn[5], dyn[6], None)
-        return c, None
+    @jax.jit
+    def loop(iicj):
+        def body(c, iif):
+            zp, up_, vp, rz, ru, rv, rufc, rvfc, avg = pred(
+                grid, iif, c, dyn[5], dyn[6], iicj, dyn[9], dyn[10], None)
+            c = corr(grid, iif, c._replace(avg=avg), zp, up_, vp, rz, ru,
+                     rv, rufc, rvfc, dyn[5], dyn[6], None)
+            return c, None
 
-    c0 = init(dyn[0], dyn[1], dyn[2], dyn[3], dyn[4], dyn[7], dyn[8])
-    ref, _ = lax.scan(body, c0, jnp.arange(1, nfast + 1, dtype=jnp.int32))
+        c0 = init(dyn[0], dyn[1], dyn[2], dyn[3], dyn[4], dyn[7], dyn[8])
+        return lax.scan(body, c0, jnp.arange(1, nfast + 1,
+                                             dtype=jnp.int32))[0]
+    return loop, dyn, (nfast, w1, w2)
+
+
+@pytest.mark.parametrize("iic", [0, 5])
+def test_fast_loop_res_plain(uc, jnp_loop, iic):
+    """The 16 carry fields after nfast substeps against roms_tpu's jnp
+    substep loop (lax.scan of its predictor and corrector)."""
+    tcfg, tgrid = uc[2].replace(dt=60.0, ndtfast=6), uc[3]
+    loop, dyn, (nfast, w1, w2) = jnp_loop
+    ref = loop(jnp.asarray(iic, jnp.int32))
     got = tstep2d.fast_loop_res(tcfg, tgrid, nfast, w1, w2, True,
                                 *_t(dyn), iic)
     for r, g in zip(tuple(ref)[:11] + tuple(ref.avg),
@@ -279,8 +293,9 @@ def runs():
         u=s0.u + jnp.asarray(0.01 * rng.standard_normal(s0.u.shape))
         * grid.umask,
         t=s0.t + jnp.asarray(0.1 * rng.standard_normal(s0.t.shape)))
-    ref = stepping.Model(cfg, grid, up.make_forcing_fn(cfg, grid),
-                         vmix_fn=up.make_vmix_fn(cfg)).run(s0, 3)
+    ref = reference_run(stepping.Model(
+        cfg, grid, up.make_forcing_fn(cfg, grid),
+        vmix_fn=up.make_vmix_fn(cfg)), s0, 3)
     tcfg, tgrid, ts0 = port(cfg, grid, s0)
     model = tstepping.Model(tcfg, tgrid, tup.make_forcing_fn(tcfg, tgrid),
                             vmix_fn=tup.make_vmix_fn(tcfg))
